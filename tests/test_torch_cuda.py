@@ -13,8 +13,10 @@ import pytest
 import torch
 
 import tpufem_torch
+from tpufem_torch.ops import cluster_kernels as tck
 from tpufem_torch.ops import fused_kernels as tfk
 from tpufem_torch.ops import packed_kernels as tpk
+from tpufem_torch.ops import stiffness_kernels as tsk
 
 E, NU = 200e9, 0.3
 DTYPES = [torch.float32, torch.float64]
@@ -98,3 +100,109 @@ def test_default_device_is_the_card(cuda_device):
     op = tpufem_torch.PackedPartialOperator.build(
         coords, conn, "c3d10", E, NU, n_nodes=coords.shape[0])
     assert op.W.device.type == "cuda" and op.plan.device.type == "cuda"
+
+
+STIFFNESS_MESHES = {"c3d4": ("box_tet", (5, 4, 3)),
+                    "c3d10": ("box_tet10", (4, 3, 3)),
+                    "c3d8": ("box_hex", (5, 4, 3)),
+                    "c3d6": ("box_wedge", (5, 4, 3))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("etype", list(STIFFNESS_MESHES))
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+def test_stiffness_kernel_bitwise_vs_plain(cuda_device, etype, dt):
+    """Each instantiation of K6 on a curved mesh whose element count is not
+    a multiple of the kernel's elements per block (the ragged edge)."""
+    gen, dims = STIFFNESS_MESHES[etype]
+    coords, conn = getattr(tpufem_torch.meshgen, gen)(*dims)
+    c = coords.copy()
+    c[:, 0] += 0.04 * np.sin(2.0 * c[:, 1]) * c[:, 2]
+    ct = torch.as_tensor(c, dtype=dt, device=cuda_device)
+    launches = tsk.STIFFNESS_FUSED.launches
+    got = tsk.stiffness_fused(ct, conn, etype, E, NU)
+    assert tsk.STIFFNESS_FUSED.launches == launches + 1
+    assert torch.equal(got, tpufem_torch.solid.stiffness(ct, conn, etype, E,
+                                                         NU))
+    want = tsk.stiffness_fused_plain(ct, conn, etype, E, NU)
+    torch.cuda.synchronize()
+    assert got.shape == (conn.shape[0], 3 * conn.shape[1], 3 * conn.shape[1])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+def test_cluster_kernels_bitwise_vs_plain(cuda_device, dt):
+    coords, conn = tpufem_torch.meshgen.box_tet10(6, 5, 4)
+    plan = tpufem_torch.ClusterPlan.build(conn, coords.shape[0], 3,
+                                          device=cuda_device)
+    B, L = plan.n_clusters, plan.l_max
+    lc = plan.lconn.reshape(B, -1)
+    rng = np.random.default_rng(6)
+    Uc = torch.as_tensor(rng.standard_normal((B, L, 3)), dtype=dt,
+                         device=cuda_device)
+    Fe = torch.as_tensor(rng.standard_normal((B, lc.shape[1], 3)), dtype=dt,
+                         device=cuda_device)
+    launches = tck.CLUSTER_EXPAND.launches
+    got = tck.cluster_expand(lc, Uc)
+    assert tck.CLUSTER_EXPAND.launches == launches + 1
+    assert torch.equal(got, tck.cluster_expand_plain(lc, Uc))
+    launches = tck.CLUSTER_COMPRESS.launches
+    got = tck.cluster_compress(lc, Fe, L)
+    assert tck.CLUSTER_COMPRESS.launches == launches + 1
+    assert torch.equal(got, tck.cluster_compress_plain(lc, Fe, L))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_static_solve_on_card_matches_cpu(cuda_device):
+    """The clustered static solve on the card (K6, K7a, K7b) against the
+    CPU path (their plain versions): the same status, iterations within 3%
+    and u to 1e-8 relative (the element GEMV sums in another order)."""
+    coords, conn = tpufem_torch.meshgen.box_tet10(3, 3, 3)
+    N = coords.shape[0]
+    fixed = tpufem_torch.meshgen.boundary_nodes(coords, 2, 0.0)
+    force = np.zeros((N, 6))
+    force[tpufem_torch.meshgen.boundary_nodes(coords, 2, 1.0), 2] = -1e3
+    kw = dict(material={"E": E, "nu": NU}, c3d10=conn, operator="clustered",
+              precondition=True, tol=1e-8 * float(np.linalg.norm(force)),
+              max_iter=2000, dtype=torch.float64)
+    counts = [K.launches for K in tpufem_torch.STATIC_KERNELS]
+    ug, ig = tpufem_torch.static_structure_solver(coords, force, fixed,
+                                                  device=cuda_device, **kw)
+    assert all(K.launches > c for K, c in
+               zip(tpufem_torch.STATIC_KERNELS, counts))
+    uc, ic = tpufem_torch.static_structure_solver(coords, force, fixed,
+                                                  device="cpu", **kw)
+    assert int(ig.status) == int(ic.status) == 1
+    assert abs(int(ig.iterations) - int(ic.iterations)) <= 0.03 * int(
+        ic.iterations)
+    assert float((ug.cpu() - uc).abs().max() / uc.abs().max()) <= 1e-8
+
+
+@pytest.mark.cuda
+def test_assembled_operator_and_stress_on_card(cuda_device):
+    """MatrixFreeOperator, its diagonal and node_vm_stress on the card
+    give the same result twice (no atomics) and agree with the CPU path to
+    1e-12 relative in f64 (the GEMV and the sums run in another order)."""
+    coords, conn = tpufem_torch.meshgen.box_tet10(4, 4, 4)
+    N = coords.shape[0]
+    rng = np.random.default_rng(8)
+    u = torch.as_tensor(rng.standard_normal((N, 3)))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        ct = torch.as_tensor(coords, device=dev)
+        K = tpufem_torch.solid.stiffness(ct, conn, "c3d10", E, NU)
+        op = tpufem_torch.MatrixFreeOperator(
+            K, tpufem_torch.ScatterPlan.build(conn, N, 3, device=dev))
+        ud = u.to(dev)
+        _, vm = tpufem_torch.solid.element_stress(
+            ct, torch.as_tensor(conn, device=dev), ud * 1e-3, "c3d10", E, NU)
+        res = (op(ud), op.diagonal(),
+               tpufem_torch.solid.node_vm_stress(N, conn, vm))
+        again = (op(ud), op.diagonal(),
+                 tpufem_torch.solid.node_vm_stress(N, conn, vm))
+        assert all(torch.equal(a, b) for a, b in zip(res, again))
+        out[dev.type] = [r.cpu() for r in res]
+    for g, c in zip(out["cuda"], out["cpu"]):
+        assert float((g - c).abs().max() / c.abs().max()) <= 1e-12

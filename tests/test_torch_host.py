@@ -133,6 +133,10 @@ _ALL_MODULES = [
     "tpufem_torch.ops.fused_kernels", "tpufem_torch.ops.packed_kernels",
     "tpufem_torch.ops.partial", "tpufem_torch.solvers.cg",
     "tpufem_torch.solvers.constraints", "tpufem_torch.solvers.refine",
+    "tpufem_torch.core.voigt", "tpufem_torch.ops.stiffness_kernels",
+    "tpufem_torch.ops.scatter", "tpufem_torch.ops.operator",
+    "tpufem_torch.ops.cluster_kernels", "tpufem_torch.ops.clustered",
+    "tpufem_torch.solvers.static",
 ]
 
 

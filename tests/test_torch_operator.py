@@ -135,6 +135,23 @@ def test_entry_points_need_a_card(monkeypatch, tmp_path):
     op = tpufem_torch.PackedPartialOperator.build(
         coords, conn, "c3d10", E, NU, n_nodes=N, device="cpu")
     assert op.W.device.type == "cpu"
+    # the assembled-stiffness path
+    for build in (lambda **kw: tpufem_torch.ScatterPlan.build(conn, N, 3,
+                                                             **kw),
+                  lambda **kw: tpufem_torch.ClusterPlan.build(conn, N, 3,
+                                                             **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+        assert build(device="cpu").device.type == "cpu"
+    K = np.zeros((conn.shape[0], 30, 30))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpufem_torch.ClusteredOperator.build(K, conn, N)
+    assert tpufem_torch.ClusteredOperator.build(
+        K, conn, N, device="cpu").K.device.type == "cpu"
+    force = np.zeros((N, 6))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpufem_torch.static_structure_solver(
+            coords, force, material={"E": E, "nu": NU}, c3d10=conn)
 
 
 def test_tf32_is_off():

@@ -3,8 +3,7 @@
 // decode and the per-slot incidence sum.
 #pragma once
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace tpufem {
 
@@ -53,7 +52,3 @@ __device__ __forceinline__ void compress_slot(
 }
 
 }  // namespace tpufem
-
-extern "C" const char* tpufem_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

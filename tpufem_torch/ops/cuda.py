@@ -4,9 +4,9 @@ Each kernel lives in one source under ``tpufem_torch/csrc/`` with a plain C
 entry point.  At first use it is compiled with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library under ``tpufem_torch/_build/`` and
 loaded with ctypes; tensors are passed as raw device pointers and the
-kernel runs on PyTorch's current stream.  The library name carries a hash
-of the sources and flags, so an edited source is rebuilt.  ``build()``
-starts one ``nvcc`` per source, all at once.
+kernel runs on PyTorch's current stream.  The library is named after its
+source and carries a hash of the sources and flags, so an edited source is
+rebuilt.  ``build()`` starts one ``nvcc`` per source, all at once.
 
 Nothing here imports or compiles anything when the module is imported: the
 CPU tests import every module on a machine without ``nvcc``.
@@ -49,7 +49,8 @@ def nvcc_path() -> str:
 
 
 class CudaKernel:
-    """One kernel source: its build, its C entry points and a launch count.
+    """One kernel: its source, its build, its C entry points and a launch
+    count.
 
     ``launches`` is a plain integer that the kernel's wrapper raises by one
     at each launch, and nowhere else."""
@@ -73,7 +74,8 @@ class CudaKernel:
             if fn == self.source or fn.endswith(".cuh"):
                 with open(os.path.join(CSRC, fn), "rb") as f:
                     h.update(fn.encode() + f.read())
-        return os.path.join(BUILD, f"{self.name}-{h.hexdigest()[:16]}.so")
+        stem = os.path.splitext(self.source)[0]
+        return os.path.join(BUILD, f"{stem}-{h.hexdigest()[:16]}.so")
 
     def log_path(self) -> str:
         return self.so_path()[:-3] + ".log"
@@ -126,10 +128,14 @@ class CudaKernel:
 
 
 def build(kernels: Iterable[CudaKernel]) -> List[str]:
-    """Compile every missing library, one nvcc process per source, all
-    started together; returns the names that were compiled."""
-    jobs = []
+    """Compile every missing library, one nvcc process per source (kernels
+    that share a source share its library), all started together; returns
+    the sources that were compiled."""
+    jobs, started = [], set()
     for k in kernels:
+        if k.so_path() in started:
+            continue
+        started.add(k.so_path())
         job = k._start()
         if job is not None:
             jobs.append((k, job))
@@ -141,7 +147,7 @@ def build(kernels: Iterable[CudaKernel]) -> List[str]:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
-    return [k.name for k, _ in jobs]
+    return [k.source for k, _ in jobs]
 
 
 def ptr(t: torch.Tensor) -> VP:

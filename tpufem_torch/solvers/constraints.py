@@ -1,14 +1,17 @@
 """Fixed-node constraints (the SPC subset of tpufem.solvers.constraints).
 
-A fixed node pins all of its DOFs to zero.  ops.packed.PackedConstraints
-turns the 0/1 free mask into the packed layout, where it masks the state
-and projects the residual.  SPC values, RBE2 and RBE3 are not ported yet.
+A fixed node pins all of its DOFs to zero.  On a device field [N, nd]
+`apply_state` and `project_residual` multiply by the 0/1 free mask (the
+SPC-only path of tpufem/solvers/constraints.py); ops.packed.
+PackedConstraints turns the same mask into the packed layout.  SPC values,
+RBE2 and RBE3 are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,10 +24,30 @@ class Constraints:
     spc_values: np.ndarray     # [S]
     n_nodes: int
     dof_per_node: int
+    # the mask as a [N, nd] tensor, per (device, dtype), made at first use
+    _masks: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
 
     @property
     def mask2d(self) -> np.ndarray:
         return self.free_mask.reshape(self.n_nodes, self.dof_per_node)
+
+    def mask_like(self, x: torch.Tensor) -> torch.Tensor:
+        """The free mask [N, nd] on x's device, in x's dtype."""
+        key = (x.device, x.dtype)
+        if key not in self._masks:
+            self._masks[key] = torch.as_tensor(self.mask2d, dtype=x.dtype,
+                                               device=x.device)
+        return self._masks[key]
+
+    def apply_state(self, u: torch.Tensor) -> torch.Tensor:
+        """Set the constrained values (zero) of a displacement-like field
+        [N, nd]."""
+        return u * self.mask_like(u)
+
+    def project_residual(self, r: torch.Tensor) -> torch.Tensor:
+        """Zero the constrained entries of a residual-like field [N, nd]."""
+        return r * self.mask_like(r)
 
     @staticmethod
     def fixed(n_nodes: int, fixed_nodes, dof_per_node: int = 3,

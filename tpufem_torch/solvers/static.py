@@ -1,0 +1,204 @@
+"""Top-level static solver for solid blocks: assembled element stiffness,
+a matrix-free operator and a Jacobi PCG solve.
+
+The port of tpufem/solvers/static.py (the reference's
+static_structure_solver API).  The state is [N, 6] (solids contribute to
+the translational columns); DOFs with no stiffness (the rotations of a
+solid model) are masked out of the Krylov space by the `live` mask.  Two
+operators: "assembled" (MatrixFreeOperator over a ScatterPlan) and
+"clustered" (ClusteredOperator, kernels K7a/K7b); both on the element K of
+solid.stiffness (kernel K6 for k <= 10 types).  PyTorch runs eagerly, so
+there is no jit: setup runs once and cg loops on the device.
+
+Not ported yet: shell blocks and the mixed solid/shell model (ROADMAP
+module item 11), operator="packed" with constraints (items 4 and 5b) and
+operator="partial" (item 9).
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..elements import solid as solid_mod
+from ..elements.tables import SHELL_TYPES, SOLID_TYPES
+from ..ops.operator import MatrixFreeOperator
+from ..ops.scatter import ScatterPlan
+from .cg import cg
+from .constraints import Constraints
+
+OPERATORS = ("assembled", "clustered")
+
+
+class StaticModel(torch.nn.Module):
+    """Assembled solid-element model: an operator on u[N, 6]."""
+
+    def __init__(self, solid_ops):
+        super().__init__()
+        self.solid_ops = torch.nn.ModuleList(solid_ops)
+
+    def forward(self, u: torch.Tensor) -> torch.Tensor:
+        F = torch.zeros_like(u)
+        for op in self.solid_ops:
+            F[:, :3] += op(u[:, :3])
+        return F
+
+    def diagonal6(self) -> torch.Tensor:
+        """Assembled [N, 6] diagonal (zeros where no stiffness exists)."""
+        d6 = None
+        for op in self.solid_ops:
+            d = op.diagonal().reshape(-1, 3)
+            if d6 is None:
+                d6 = d.new_zeros((d.shape[0], 6))
+            d6[:, :3] += d
+        return d6
+
+    def jacobi_preconditioner(self, d6: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+        """Inverse of the [N, 6] diagonal, 0 where it is 0 (pass d6 when
+        it is at hand)."""
+        d = self.diagonal6() if d6 is None else d6
+        return torch.where(d.abs() > 0,
+                           1.0 / torch.where(d == 0, 1.0, d), 0.0)
+
+
+def _check_blocks(blocks: Dict, operator: str) -> None:
+    if operator == "packed":
+        raise NotImplementedError(
+            "operator='packed' is not ported to static_structure_solver yet "
+            "(ROADMAP module items 4 and 5b); use PackedSystem")
+    if operator == "partial":
+        raise NotImplementedError(
+            "operator='partial' (PartialAssemblyOperator) is not ported yet "
+            "(ROADMAP module item 9)")
+    if operator not in OPERATORS:
+        raise ValueError(f"operator must be one of {OPERATORS}, got "
+                         f"{operator!r}")
+    for et in blocks:
+        if et.lower() in SHELL_TYPES:
+            raise NotImplementedError(
+                f"shell block {et!r}: shells are not ported yet (ROADMAP "
+                f"module item 11)")
+        if et.lower() not in SOLID_TYPES:
+            raise ValueError(f"Unsupported element type: {et}")
+
+
+def build_static_model(coords, blocks: Dict[str, np.ndarray], material: dict,
+                       dtype=None, operator: str = "assembled", device=None,
+                       timings: Optional[dict] = None) -> StaticModel:
+    """Per-block element stiffness and operators for solid blocks.
+
+    blocks: {etype: connectivity [M, k]} with etype in SOLID_TYPES;
+    material: {'E', 'nu'}; device=None means the CUDA card.  timings, when
+    given, gets the seconds of each stage ("stiffness", "plans",
+    "operator"), each ending in a device synchronise."""
+    _check_blocks(blocks, operator)
+    dev = resolve_device(device)
+    coords_t = torch.as_tensor(coords if isinstance(coords, torch.Tensor)
+                               else np.asarray(coords), device=dev)
+    if dtype is not None:
+        coords_t = coords_t.to(dtype)
+    N = coords_t.shape[0]
+    t = {"stiffness": 0.0, "plans": 0.0, "operator": 0.0}
+
+    def tick(stage, t0):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t[stage] += time.perf_counter() - t0
+        return time.perf_counter()
+
+    ops = []
+    for et, conn in blocks.items():
+        conn_np = np.asarray(conn)
+        t0 = time.perf_counter()
+        K = solid_mod.stiffness(coords_t, torch.as_tensor(conn_np, device=dev),
+                                et.lower(), material["E"], material["nu"])
+        t0 = tick("stiffness", t0)
+        if operator == "clustered":
+            from ..ops.clustered import ClusterPlan, ClusteredOperator
+            plan = ClusterPlan.build(conn_np, N, 3, device=dev)
+            t0 = tick("plans", t0)
+            ops.append(ClusteredOperator.build(K, conn_np, N, 3, plan=plan))
+        else:
+            plan = ScatterPlan.build(conn_np, N, 3, device=dev)
+            t0 = tick("plans", t0)
+            ops.append(MatrixFreeOperator(K, plan))
+        del K
+        tick("operator", t0)
+    if timings is not None:
+        timings.update(t)
+    return StaticModel(ops)
+
+
+class _LiveConstraints:
+    """The user's constraints with the DOFs that have no stiffness also
+    projected out of the residual."""
+
+    def __init__(self, cons: Constraints, live: torch.Tensor):
+        self.cons, self.live = cons, live
+
+    def project_residual(self, r):
+        return self.cons.project_residual(r * self.live)
+
+    def apply_state(self, u):
+        return self.cons.apply_state(u)
+
+
+def static_structure_solver(coords, force, fixed=None, *, material: dict,
+                            c3d4=None, c3d6=None, c3d8=None, c3d10=None,
+                            c3d20=None, c3d15=None, s3=None, s4=None,
+                            blocks: Optional[Dict] = None,
+                            constraints: Optional[Constraints] = None,
+                            u_init=None, tol: float = 1e-10,
+                            max_iter: int = 1000, precondition: bool = False,
+                            dtype=None, operator: str = "assembled",
+                            dot_dtype=None, device=None,
+                            timings: Optional[dict] = None):
+    """Solve the static problem on solid blocks; returns (u [N, 6],
+    SolveInfo).
+
+    tpufem's signature (less `jit`): force [N, 6]; fixed nodes pinned in
+    all 6 DOFs (or a Constraints over 6 DOFs per node); tol is ABSOLUTE on
+    ||r||; dtype defaults to force's; device=None means the CUDA card.
+    timings, when given, gets the seconds of the setup stages (see
+    build_static_model), "jacobi" and "solve"."""
+    blocks = dict(blocks or {})
+    for name, conn in (("c3d4", c3d4), ("c3d6", c3d6), ("c3d8", c3d8),
+                       ("c3d10", c3d10), ("c3d20", c3d20), ("c3d15", c3d15),
+                       ("s3", s3), ("s4", s4)):
+        if conn is not None:
+            blocks[name] = conn
+    _check_blocks(blocks, operator)
+    dev = resolve_device(device)
+    force_t = torch.as_tensor(np.asarray(force) if not isinstance(
+        force, torch.Tensor) else force)
+    dt = dtype or force_t.dtype
+    np_dt = np.float64 if dt == torch.float64 else np.float32
+    force_t = force_t.to(device=dev, dtype=dt)
+    N = force_t.shape[0]
+    if constraints is None:
+        constraints = Constraints.fixed(N, fixed if fixed is not None else [],
+                                        6, dtype=np_dt)
+    model = build_static_model(coords, blocks, material, dtype=dt,
+                               operator=operator, device=dev, timings=timings)
+    t0 = time.perf_counter()
+    d6 = model.diagonal6()
+    live = (d6.abs() > 0).to(dt)
+    M_inv = model.jacobi_preconditioner(d6) if precondition else None
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    x0 = (torch.as_tensor(np.asarray(u_init), device=dev).to(dt)
+          if u_init is not None else None)
+    u, info = cg(model, force_t * live,
+                 constraints=_LiveConstraints(constraints, live),
+                 M_inv=M_inv, x0=x0, tol=tol, max_iter=max_iter,
+                 dot_dtype=dot_dtype)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    if timings is not None:
+        timings.update(jacobi=t1 - t0, solve=time.perf_counter() - t1)
+    return u, info

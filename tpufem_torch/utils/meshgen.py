@@ -1,8 +1,8 @@
 """Structured box meshes (host-side numpy), copied from tpufem.utils.meshgen.
 
-Only the generators the packed c3d10 path uses: the hex box, its Kuhn tet
-split, the c3d4 -> c3d10 promotion and the face selector for fixing nodes.
-Outputs are bitwise equal to tpufem's.
+The hex box, its Kuhn tet split, its wedge split, the c3d4 -> c3d10
+promotion and the face selector for fixing nodes.  Outputs are bitwise
+equal to tpufem's.
 """
 from __future__ import annotations
 
@@ -53,6 +53,14 @@ def box_tet(nx: int, ny: int, nz: int, lx=1.0, ly=1.0, lz=1.0):
     flip = np.tile(neg, tets.shape[0] // 6)
     tets[flip] = tets[flip][:, [0, 1, 3, 2]]
     return coords, tets.astype(np.int32)
+
+
+def box_wedge(nx: int, ny: int, nz: int, lx=1.0, ly=1.0, lz=1.0):
+    """Conforming wedge box mesh (2 wedges per hex, split along 0-2)."""
+    coords, hexes = box_hex(nx, ny, nz, lx, ly, lz)
+    w1 = hexes[:, [0, 1, 2, 4, 5, 6]]
+    w2 = hexes[:, [0, 2, 3, 4, 6, 7]]
+    return coords, np.concatenate([w1, w2], axis=0).astype(np.int32)
 
 
 def unique_rows2(rows, base: int | None = None):
