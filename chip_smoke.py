@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Drive tpufem_torch's two ported paths on one CUDA card: the refined
-packed c3d10 solve and the assembled-stiffness static solve.
+"""Drive tpufem_torch's three ported paths on one CUDA card: the refined
+packed c3d10 solve, the assembled-stiffness static solve, and the staged
+packed pipeline under the block-Jacobi refined solve.
 
     python3 chip_smoke.py            # box_tet10(55): 1.00M elements, 4.1M DOF
     python3 chip_smoke.py --n 10     # a quick check at 6k elements
+    python3 chip_smoke.py --phases staged   # one path (packed, static, staged)
 
 Phases (any failure exits non-zero, and the last line is then not
 printed):
@@ -48,6 +50,28 @@ printed):
       true relative residual is <= 1e-6, the tip deflection is finite and
       negative, and K6, K7a and K7b all launched;
   8f. torch.profiler over a window of 20 of its PCG iterations.
+  The staged packed pipeline (same mesh, plan and load; f32 operator with
+  fuse=""):
+  9a. expand, expand_planar and compress_planar (K4, K5a, K5b) against
+      their plain versions on every bucket: bitwise in f32, <= 1e-13
+      relative in f64; expand also on a box_tet10(10) plan with
+      elems_per_cluster=24 (lanes straddle the 128-lane chunks); fused_yc's
+      c3d4 and c3d8 instantiations bitwise on small curved meshes;
+  9b. the staged operator against the fused one (apply, diagonal, block
+      diagonal: <= 1e-6 relative), and the planar pipeline
+      (probe_fused.fused_apply "planar", which counts K5a's and K5b's
+      launches) bitwise equal to the staged one;
+  9c. main path, every launch count set to 0 first: PackedSystem
+      (precondition="block") under RefinedSystem, the settings of phase 5;
+      fails unless the f64 true relative residual is <= 1e-6, the tip
+      deflection is finite, negative and within 1e-4 (relative) of phase
+      5's, and expand, compress_gather and combine all launched;
+  9d. device and host-clock ms per apply of the staged, planar and fused
+      pipelines and of the element math (pa_apply_planar) alone;
+      torch.profiler over 20 block-Jacobi PCG iterations; each new
+      kernel's device ms per sweep, bound, plain ms and library yardstick
+      (torch.take for K4/K5a, index_add_ for K5b; phase 4 adds index_add_
+      for K2/K3).
 It then prints {"kernels": [...]} (the static kernels' numbers are
 float64, the main path's type, with the float32 ones beside them), the
 card's name and power limit, and, last, {"ok": true, "device": ...}.
@@ -179,6 +203,42 @@ def bound_ms(nbytes: int, flops: int):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / F32_FLOPS * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def library_tables(plan):
+    """Index tables (int64, built once and not timed) for the library
+    yardsticks: one torch.take or index_add_ that computes what a kernel
+    computes.  Gathers read X with a zero row appended (row Nb, where
+    empty slots point); sums send the values no slot or node takes to
+    one extra dump entry at the end."""
+    m = plan.meta
+    B, Nb, k, E_c, Rp = (m.n_clusters, m.n_blocks, m.nodes_per_elem,
+                         m.elems_per_cluster, m.lanes)
+    dev = plan.device
+    c3 = torch.arange(3, device=dev)[None, :, None] * 128
+    wn, ws, js = (plan.win_nodes.long(), plan.wslot.long(),
+                  plan.jslot.long())
+    Wn = wn.shape[1]
+    row = torch.gather(wn, 1, ws.clamp(max=Wn - 1))
+    valid = (ws < Wn) & (row < Nb)
+    row = torch.where(valid, row, Nb)                        # [B, 128]
+    slot_src = row[:, None, :] * 384 + c3 + js[:, None, :]   # [B, 3, 128]
+    lc = plan.lconn.long()
+    take = torch.gather(slot_src, 2, lc[:, None, :].expand(B, 3, Rp))
+    ev = (plan.esrc.reshape(B, E_c) >= 0).repeat(1, k)       # lane kk*E_c+e
+    lane_ok = torch.zeros((B, Rp), dtype=torch.bool, device=dev)
+    lane_ok[:, :k * E_c] = ev
+    bb = torch.arange(B, device=dev)[:, None, None] * 384
+    dst = torch.where(lane_ok[:, None, :], bb + c3 + lc[:, None, :], B * 384)
+
+    def planar(t):                   # [B, 3, Rp] -> [3, k, B, E_c]
+        return t[:, :, :k * E_c].reshape(B, 3, k, E_c).permute(
+            1, 2, 0, 3).contiguous().reshape(-1)
+
+    node = torch.where(valid[:, None, :], slot_src, Nb * 384)  # [B, 3, 128]
+    return {"expand": take.reshape(-1), "expand_planar": planar(take),
+            "compress": dst.reshape(-1), "compress_planar": planar(dst),
+            "combine": node.reshape(-1)}
 
 
 def packed_phase(args, dev):
@@ -369,6 +429,31 @@ def packed_phase(args, dev):
             f"(torch.profiler, {args.reps} sweeps); the bound is {share:.1%}"
             f" of it")
 
+    # library yardsticks: one index_add_ over index tables built once
+    lib = library_tables(plan)
+    Bc, Nb = m.n_clusters, m.n_blocks
+    library_ms = {
+        "fused_yc": None,
+        "combine": time_ms(lambda: Yr.new_zeros(Nb * 384 + 1).index_add_(
+            0, lib["combine"], Yr.reshape(-1)), args.reps),
+        "compress_gather": time_ms(lambda: Fe.new_zeros(
+            Bc * 384 + 1).index_add_(0, lib["compress"], Fe.reshape(-1)),
+            args.reps)}
+    got = Yr.new_zeros(Nb * 384 + 1).index_add_(0, lib["combine"],
+                                                Yr.reshape(-1))
+    lib_rel = {"combine": max_rel(got[:-1].reshape(Nb, 384),
+                                  op.combine_stage(Yr))}
+    got = Fe.new_zeros(Bc * 384 + 1).index_add_(0, lib["compress"],
+                                                Fe.reshape(-1))
+    lib_rel["compress_gather"] = max_rel(got[:-1].reshape(Bc, 384),
+                                         op.compress_stage(Fe))
+    del lib, got
+    log(f"library yardsticks (index_add_, CUDA events): combine "
+        f"{library_ms['combine']:.4f} ms (max rel to the kernel "
+        f"{lib_rel['combine']:.1e}), compress_gather "
+        f"{library_ms['compress_gather']:.4f} ms (max rel "
+        f"{lib_rel['compress_gather']:.1e})")
+
     rows = []
     for K in tt.PACKED_KERNELS:
         sweep_ms, plain_ms, b_ms, b_by = times[K.name]
@@ -377,10 +462,11 @@ def packed_phase(args, dev):
             source=f"tpufem_torch/csrc/{K.source}", replaces=K.replaces,
             launches=launches[K.name], max_abs_err=parity[K.name][0],
             ms=kernel_ms[K.name], plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None, sweep_ms=sweep_ms,
+            bound_by=b_by, library_ms=library_ms[K.name], sweep_ms=sweep_ms,
             launches_per_apply=per_apply[K.name],
             f64_max_rel_err=parity[K.name][1]))
-    return rows, tip
+    ctx = dict(coords=coords, conn=conn, plan=plan, op=op)
+    return rows, tip, ctx
 
 
 # the other k <= 10 instantiations of K6, each on a small curved mesh
@@ -644,7 +730,8 @@ def static_phase(args, dev, tip_packed):
     r = (b3 - op64(u3.reshape(-1)).reshape(N, 3)) * mask
     true_rel = float(torch.linalg.norm(r) / torch.linalg.norm(b3))
     tip = float(u3[torch.as_tensor(top, device=dev).long(), 2].mean())
-    tip_d = abs(tip - tip_packed) / abs(tip_packed)
+    tip_d = (abs(tip - tip_packed) / abs(tip_packed)
+             if tip_packed is not None else float("nan"))
     setup_s = sum(timings[k] for k in ("stiffness", "plans", "operator",
                                        "jacobi"))
     log(f"main path (static): status {status}, iterations {iters}, "
@@ -656,7 +743,7 @@ def static_phase(args, dev, tip_packed):
         f"({timings['solve'] / max(iters, 1) * 1e3:.3f} ms per iteration, "
         f"derived), entry point {t_total:.2f} s; peak device memory "
         f"{peak_gb:.2f} GB; tip uz mean {tip:.6e} (refined packed solve "
-        f"{tip_packed:.6e}, rel diff {tip_d:.2e}); launches {launches}")
+        f"{tip_packed}, rel diff {tip_d:.2e}); launches {launches}")
     if status != 1:
         fail(f"static solve status {status} (1 = CONVERGED)")
     if not true_rel <= 1e-6:
@@ -722,13 +809,321 @@ def static_phase(args, dev, tip_packed):
     return rows
 
 
+# fused_yc's other instantiations, each on a small curved mesh
+K1_SMALL = {"c3d4": ("box_tet", (20, 20, 20)),
+            "c3d8": ("box_hex", (24, 24, 24))}
+
+
+def staged_bounds(plan, itemsize: int):
+    """(bytes, flops) of one sweep of K4, K5a and K5b on these tables, as
+    bounds() counts them (X read once by the gathers)."""
+    m = plan.meta
+    k, E_c, Rp = m.nodes_per_elem, m.elems_per_cluster, m.lanes
+    kE = k * E_c
+    ex = exp = cp = 0
+    for gi, (s, n, wk) in enumerate(m.c_groups):
+        if wk == 0 or n == 0:
+            continue
+        words = plan.cinc[gi].shape[1] * 128 * 4
+        ex += n * (wk * 4 + 2 * 128 * 4 + Rp * 4 + 3 * Rp * itemsize)
+        exp += n * (wk * 4 + 2 * 128 * 4 + kE * 4 + 3 * kE * itemsize)
+        cp += n * (3 * kE * itemsize + words + 384 * itemsize)
+    xb = m.n_blocks * 384 * itemsize
+    slots = sum(int(((c >> (8 * b)) & 0xFF).ne(0).sum().item())
+                for c in plan.cinc for b in range(4))
+    return {"expand": (ex + xb, 0), "expand_planar": (exp + xb, 0),
+            "compress_planar": (cp, 3 * slots)}
+
+
+def staged_phase(args, dev, ctx, tip_fused):
+    """The staged packed pipeline and the block-Jacobi refined solve
+    (phase 9 of the module docstring).  Returns its {"kernels"} rows."""
+    import tpufem_torch as tt
+    from tpufem_torch.ops import fused_kernels as fk
+    from tpufem_torch.ops import packed_kernels as pk
+    from tpufem_torch.ops import probe_fused as pf
+    from tpufem_torch.ops.packed import lanes_to_planar
+
+    f32, f64 = torch.float32, torch.float64
+    n = args.n
+    if ctx is None:
+        coords, conn = tt.meshgen.box_tet10(n, n, n)
+        plan = tt.PackedPlan.build(coords, conn, coords.shape[0], device=dev)
+        fused = tt.PackedPartialOperator.build(coords, conn, "c3d10", E, NU,
+                                               plan=plan, device=dev)
+    else:
+        coords, conn, plan, fused = (ctx[k] for k in ("coords", "conn",
+                                                      "plan", "op"))
+    N, M = coords.shape[0], conn.shape[0]
+    m = plan.meta
+    k, E_c, B = m.nodes_per_elem, m.elems_per_cluster, m.n_clusters
+    t0 = time.perf_counter()
+    staged = tt.PackedPartialOperator.build(coords, conn, "c3d10", E, NU,
+                                            plan=plan, fuse="", dtype=f32,
+                                            device=dev)
+    torch.cuda.synchronize()
+    log(f"staged: box_tet10({n}) {M} elements; f32 staged operator "
+        f"(fuse='') on the packed plan, geometry {time.perf_counter() - t0:.2f}"
+        f" s; B={B} Rp={m.lanes} k*E_c={k * E_c}")
+    STAGED = {K.name: K for K in tt.STAGED_KERNELS}
+    rng = np.random.default_rng(args.seed + 2)
+    X = torch.as_tensor(rng.standard_normal((m.n_blocks, 384)), dtype=f32,
+                        device=dev)
+    fe3 = torch.as_tensor(rng.standard_normal((3, k, B, E_c)), dtype=f32,
+                          device=dev)
+    ops = {f32: staged, f64: tt.PackedPartialOperator(
+        plan, staged.Jinv.double(), staged.W.double(), staged.dN,
+        *staged.lam_mu, fuse="")}
+
+    def sweep(name, dt=f32, plain=False):
+        """One sweep of kernel `name` (or its plain version) over all
+        buckets, on the seeded input in dtype dt."""
+        o = ops[dt]
+        if name == "expand":
+            x, kern = X.to(dt), pk.expand_plain if plain else pk.expand
+            return lambda: o.expand_stage(x, kern)
+        if name == "expand_planar":
+            x = X.to(dt)
+            kern = pk.expand_planar_plain if plain else pk.expand_planar
+            return lambda: pf.expand_planar_stage(o, x, kern)
+        f = fe3.to(dt)
+        kern = pk.compress_planar_plain if plain else pk.compress_planar
+        return lambda: pf.compress_planar_stage(o, f, kern)
+
+    # 9a. parity: K4, K5a, K5b on every bucket; K4 on an E_c = 24 plan;
+    # K1's c3d4 and c3d8 instantiations
+    parity = {}
+    for name in STAGED:
+        got, want = sweep(name)(), sweep(name, plain=True)()
+        torch.cuda.synchronize()
+        err32 = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            fail(f"{name} f32 differs from its plain version: max |d| "
+                 f"{err32:.3e}")
+        got, want = sweep(name, f64)(), sweep(name, f64, plain=True)()
+        rel64 = max_rel(got, want)
+        if not rel64 <= 1e-13:
+            fail(f"{name} f64 relative error {rel64:.3e} > 1e-13")
+        parity[name] = (err32, rel64)
+        log(f"parity {name}: f32 bitwise equal on {len(m.c_groups)} buckets "
+            f"(max |d| {err32:.1e}), f64 max rel {rel64:.1e}")
+    del got, want, ops[f64]
+    c24, n24 = tt.meshgen.box_tet10(10, 10, 10)
+    op24 = tt.PackedPartialOperator.build(c24, n24, "c3d10", E, NU,
+                                          n_nodes=c24.shape[0],
+                                          elems_per_cluster=24, device=dev)
+    m24 = op24.plan.meta
+    for dt in (f32, f64):
+        x24 = torch.as_tensor(rng.standard_normal((m24.n_blocks, 384)),
+                              dtype=dt, device=dev)
+        if not torch.equal(op24.expand_stage(x24),
+                           op24.expand_stage(x24, pk.expand_plain)):
+            fail(f"expand {dt} differs from its plain version at E_c = 24")
+    log(f"parity expand at E_c = 24 (box_tet10(10), fuse "
+        f"{op24.fuse!r}, Rp={m24.lanes}, cv_widths {list(m24.cv_widths)}): "
+        f"bitwise equal in f32 and f64")
+    del op24
+    for et, (gen, dims) in K1_SMALL.items():
+        c, cn = getattr(tt.meshgen, gen)(*dims)
+        c = c.copy()
+        c[:, 0] += 0.04 * np.sin(2.0 * c[:, 1]) * c[:, 2]
+        for dt in (f32, f64):
+            o = tt.PackedPartialOperator.build(c, cn, et, E, NU,
+                                               n_nodes=c.shape[0], dtype=dt,
+                                               device=dev)
+            x = torch.as_tensor(rng.standard_normal((o.plan.meta.n_blocks,
+                                                     384)), dtype=dt,
+                                device=dev)
+            got = o.fused_stage(x)
+            want = o.fused_stage(x, kernel=fk.fused_yc_plain)
+            if not torch.equal(got, want):
+                fail(f"fused_yc {et} {dt} differs from its plain version: "
+                     f"max |d| {float((got - want).abs().max()):.3e}")
+        q = o.dN.shape[0]
+        log(f"parity fused_yc {et} (k={cn.shape[1]}, q={q}, qJ="
+            f"{o.Jinv.shape[1] // 9}): bitwise equal in f32 and f64 on "
+            f"{cn.shape[0]} elements")
+    del o, x, got, want
+
+    # 9b. operator cross-checks on the whole mesh; the planar pipeline's
+    # launches are counted here (its path)
+    uX = plan.pack_flat(torch.as_tensor(rng.standard_normal(3 * N),
+                                        device=dev), f32)
+    F_st = staged(uX)
+    rel_apply = max_rel(F_st, fused(uX))
+    rel_diag = max_rel(staged.diagonal(), fused.diagonal())
+    rel_block = max(max_rel(a, b) for a, b in zip(staged.block_diagonal(),
+                                                  fused.block_diagonal()))
+    for K in tt.KERNELS:
+        K.launches = 0
+    F_pl = pf.fused_apply(staged, uX, "planar")
+    torch.cuda.synchronize()
+    planar_launches = {K.name: K.launches for K in tt.KERNELS}
+    log(f"cross-check f32: staged vs fused apply max rel {rel_apply:.2e}, "
+        f"diagonal {rel_diag:.2e}, block diagonal {rel_block:.2e}; planar "
+        f"vs staged apply bitwise {torch.equal(F_pl, F_st)}; launches of "
+        f"one planar apply {planar_launches}")
+    for what, rel in (("apply", rel_apply), ("diagonal", rel_diag),
+                      ("block diagonal", rel_block)):
+        if not rel <= 1e-6:
+            fail(f"staged vs fused {what}: max rel {rel:.3e} > 1e-6")
+    if not torch.equal(F_pl, F_st):
+        fail(f"planar pipeline differs from the staged one: max rel "
+             f"{max_rel(F_pl, F_st):.3e}")
+    for name in ("expand_planar", "compress_planar"):
+        if planar_launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the planar pipeline")
+    del F_st, F_pl
+
+    # 9c. main path: block-Jacobi refined solve on the staged operator,
+    # every count 0 just before, read just after
+    fixed = tt.meshgen.boundary_nodes(coords, 2, 0.0)
+    top = tt.meshgen.boundary_nodes(coords, 2, 1.0)
+    b = np.zeros((N, 3), np.float32)
+    b[top, 2] = -1e3
+    for K in tt.KERNELS:
+        K.launches = 0
+    t0 = time.perf_counter()
+    system = tt.PackedSystem(staged, fixed_nodes=fixed, precondition="block")
+    torch.cuda.synchronize()
+    t_block = time.perf_counter() - t0
+    ref = tt.RefinedSystem(system, coords, conn, "c3d10", E, NU)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    u, info = ref.solve(
+        b, tol_rel=1e-6, inner_tol=5e-3, inner_max_iter=1500, every=500,
+        progress=lambda cy, it, rr: log(
+            f"  cycle {cy} (inner iterations {it}): f64 true rel residual "
+            f"{rr:.3e} [{time.perf_counter() - t0:.1f} s]"))
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    launches = {K.name: K.launches for K in tt.KERNELS}
+    tip = float(u.reshape(N, 3)[torch.as_tensor(top, device=dev).long(),
+                                2].mean())
+    tip_d = (abs(tip - tip_fused) / abs(tip_fused) if tip_fused is not None
+             else float("nan"))
+    log(f"main path (staged, block Jacobi): setup {t_setup:.2f} s (block "
+        f"Jacobi {t_block:.2f} s), solve {t_solve:.2f} s, cycles "
+        f"{info.cycles}, inner iterations {info.inner_iterations} "
+        f"({t_solve / max(info.inner_iterations, 1) * 1e3:.3f} ms each, "
+        f"derived), outer history (rel) "
+        f"{[float(h / info.outer_history[0]) for h in info.outer_history]}, "
+        f"f64 true rel residual {info.rel_residual:.3e}, tip uz mean "
+        f"{tip:.6e} (fused Jacobi solve {tip_fused}, rel diff {tip_d:.2e}); "
+        f"launches {launches}")
+    if not info.rel_residual <= 1e-6:
+        fail(f"staged solve: f64 true relative residual "
+             f"{info.rel_residual:.3e} > 1e-6")
+    if not (np.isfinite(tip) and tip < 0):
+        fail(f"staged solve: tip uz mean {tip} is not finite and negative")
+    if tip_fused is not None and not tip_d <= 1e-4:
+        fail(f"staged solve: tip uz mean {tip:.6e} differs from the fused "
+             f"solve's {tip_fused:.6e} by {tip_d:.2e} > 1e-4")
+    for name in ("expand", "compress_gather", "combine"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the staged path")
+    del u
+
+    # 9d. times: one apply of each pipeline; the element math's share;
+    # a profiled window of PCG iterations; each new kernel's sweep
+    reps = max(args.reps // 2, 5)
+    Jc, Wc = staged.cluster_geometry()
+    pipes = {"staged": lambda: staged(uX),
+             "planar": lambda: pf.fused_apply(staged, uX, "planar"),
+             "fused": lambda: pf.fused_apply(staged, uX, "dense", (Jc, Wc))}
+    ue3 = lanes_to_planar(staged.expand_stage(uX), k, E_c)
+    pipe_ms = {}
+    for name, fn in list(pipes.items()) + [
+            ("element math", lambda: staged.element_forces(ue3))]:
+        pipe_ms[name] = (total_device_ms(fn, reps), time_ms(fn, reps))
+    share = pipe_ms["element math"][0] / pipe_ms["staged"][0]
+    log(f"applies (device ms by torch.profiler, host-clock ms by CUDA "
+        f"events, per apply): "
+        + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in
+                    pipe_ms.items())
+        + f"; pa_apply_planar takes {share:.1%} of the staged apply's device "
+        f"time and {pipe_ms['element math'][1] / pipe_ms['staged'][1]:.1%} "
+        f"of its host-clock time")
+    del ue3, Jc, Wc
+    iters = 20
+    bX = plan.pack(torch.as_tensor(b, device=dev))
+    bX = bX / torch.linalg.norm(bX)
+
+    def pcg():
+        system.solve_chunked_packed(bX, tol=0.0, max_iter=iters, every=iters)
+
+    pcg()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pcg()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = device_times(pcg, 1)
+    dev_ms = sum(r[1] for r in prof)
+    log(f"profile (staged, block Jacobi): {iters} PCG iterations, "
+        f"{wall_ms / iters:.4f} ms per iteration (host clock, unprofiled); "
+        f"device {dev_ms / iters:.4f} ms per iteration, busy "
+        f"{dev_ms / wall_ms:.1%}")
+    for name, ms, count in prof[:10]:
+        log(f"  {ms / iters:.4f} ms/it  {count / iters:.1f} launches/it  "
+            f"{name[:90]}")
+
+    lib = library_tables(plan)
+    Xp = torch.cat([X, X.new_zeros((1, 384))])
+    library = {"expand": lambda: torch.take(Xp, lib["expand"]),
+               "expand_planar": lambda: torch.take(Xp, lib["expand_planar"]),
+               "compress_planar": lambda: fe3.new_zeros(
+                   B * 384 + 1).index_add_(0, lib["compress_planar"],
+                                           fe3.reshape(-1))}
+    lib_err = {
+        "expand": float((library["expand"]().reshape(B, 3, m.lanes)
+                         - sweep("expand")()).abs().max()),
+        "expand_planar": float((library["expand_planar"]().reshape(
+            3, k, B, E_c) - sweep("expand_planar")()).abs().max()),
+        "compress_planar": max_rel(library["compress_planar"]()[:-1]
+                                   .reshape(B, 384),
+                                   sweep("compress_planar")())}
+    nb = staged_bounds(plan, 4)
+    rows = []
+    for name, K in STAGED.items():
+        ms = kernel_device_ms(sweep(name), args.reps,
+                              f"tpufem::{name}_kernel<")
+        plain_ms = time_ms(sweep(name, plain=True), 3, warmup=1)
+        lib_ms = time_ms(library[name], args.reps)
+        b_ms, b_by = bound_ms(*nb[name])
+        main = name == "expand"
+        rows.append(dict(
+            name=name, route="cuda", source=f"tpufem_torch/csrc/{K.source}",
+            replaces=K.replaces,
+            launches=launches[name] if main else planar_launches[name],
+            path=("the block-Jacobi refined solve on the staged operator"
+                  if main else "one planar apply (probe_fused.fused_apply)"),
+            max_abs_err=parity[name][0], ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            f64_max_rel_err=parity[name][1]))
+        log(f"time {name}: {ms:.4f} ms device per sweep (torch.profiler); "
+            f"bound {b_ms:.4f} ms by {b_by} ({nb[name][0]} bytes, "
+            f"{b_ms / ms:.1%} of it); plain {plain_ms:.3f} ms; library "
+            f"{lib_ms:.4f} ms (difference to the kernel {lib_err[name]:.1e})")
+    staged_launches = {name: launches[name] for name in ("compress_gather",
+                                                         "combine")}
+    return rows, staged_launches
+
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=55,
                     help="box_tet10(n, n, n): 6 n^3 c3d10 elements")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--phases", default="packed,static,staged",
+                    help="comma-separated subset of packed, static, staged")
     args = ap.parse_args()
+    phases = set(args.phases.split(","))
+    if not phases <= {"packed", "static", "staged"}:
+        ap.error(f"unknown phases {phases}")
 
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs on the card")
@@ -754,13 +1149,25 @@ def main() -> None:
     for K in tt.KERNELS:
         log(f"  ptxas {K.name}: {ptxas_digest(K)}")
 
-    t0 = time.perf_counter()
-    rows, tip = packed_phase(args, dev)
-    torch.cuda.empty_cache()
-    log(f"phase packed: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    rows += static_phase(args, dev, tip)
-    log(f"phase static: {time.perf_counter() - t0:.1f} s")
+    rows, tip, ctx = [], None, None
+    if "packed" in phases:
+        t0 = time.perf_counter()
+        rows, tip, ctx = packed_phase(args, dev)
+        torch.cuda.empty_cache()
+        log(f"phase packed: {time.perf_counter() - t0:.1f} s")
+    if "static" in phases:
+        t0 = time.perf_counter()
+        rows += static_phase(args, dev, tip)
+        torch.cuda.empty_cache()
+        log(f"phase static: {time.perf_counter() - t0:.1f} s")
+    if "staged" in phases:
+        t0 = time.perf_counter()
+        staged_rows, staged_launches = staged_phase(args, dev, ctx, tip)
+        for r in rows:
+            if r["name"] in staged_launches:
+                r["staged_launches"] = staged_launches[r["name"]]
+        rows += staged_rows
+        log(f"phase staged: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ import torch
 import tpufem_torch
 from tpufem_torch.ops import cluster_kernels as tck
 from tpufem_torch.ops import fused_kernels as tfk
+from tpufem_torch.ops import packed as tpp
 from tpufem_torch.ops import packed_kernels as tpk
 from tpufem_torch.ops import stiffness_kernels as tsk
 
@@ -206,3 +207,118 @@ def test_assembled_operator_and_stress_on_card(cuda_device):
         out[dev.type] = [r.cpu() for r in res]
     for g, c in zip(out["cuda"], out["cpu"]):
         assert float((g - c).abs().max() / c.abs().max()) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+def test_staged_kernels_bitwise_vs_plain(multi, cuda_device, dt):
+    """expand, expand_planar and compress_planar against their plain
+    versions on every bucket (planar arrays as row slices of one
+    [3, k, B, E_c] array, as the planar pipeline passes them)."""
+    _, _, op = multi
+    tp, m = op.plan, op.plan.meta
+    k, E_c = m.nodes_per_elem, m.elems_per_cluster
+    rng = np.random.default_rng(9)
+    X = torch.as_tensor(rng.standard_normal((m.n_blocks, 384)), dtype=dt,
+                        device=cuda_device)
+    fe3 = torch.as_tensor(rng.standard_normal((3, k, m.n_clusters, E_c)),
+                          dtype=dt, device=cuda_device)
+    ue3 = torch.zeros_like(fe3)
+    for gi, (s, n, wk) in enumerate(m.c_groups):
+        sl = slice(s, s + n)
+        rows = (tp.win_nodes[sl], tp.wslot[sl], tp.jslot[sl], tp.lconn[sl])
+        launches = tpk.EXPAND.launches
+        got = tpk.expand(X, *rows, wk=wk)
+        assert tpk.EXPAND.launches == launches + 1
+        assert torch.equal(got, tpk.expand_plain(X, *rows, wk=wk))
+        launches = tpk.EXPAND_PLANAR.launches
+        tpk.expand_planar(X, *rows, k, E_c, wk=wk, out=ue3[:, :, sl])
+        assert tpk.EXPAND_PLANAR.launches == launches + 1
+        assert torch.equal(ue3[:, :, sl], tpk.expand_planar_plain(
+            X, *rows, k, E_c, wk=wk))
+        launches = tpk.COMPRESS_PLANAR.launches
+        got = tpk.compress_planar(fe3[:, :, sl], tp.cinc[gi],
+                                  m.cv_widths[gi])
+        assert tpk.COMPRESS_PLANAR.launches == launches + 1
+        assert torch.equal(got, tpk.compress_planar_plain(
+            fe3[:, :, sl], tp.cinc[gi], m.cv_widths[gi]))
+        lanes = tpp.planar_to_lanes(
+            fe3[:, :, sl].contiguous(), m.lanes)
+        assert torch.equal(got, tpk.compress_gather(lanes, tp.cinc[gi],
+                                                    m.cv_widths[gi]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+def test_expand_straddling_lanes(cuda_device, dt):
+    """expand on an E_c = 24 plan (element lanes straddle the 128-lane
+    chunks) and the staged operator on it against the CPU path."""
+    coords, conn = tpufem_torch.meshgen.box_tet10(6, 5, 4)
+    N = coords.shape[0]
+    op = tpufem_torch.PackedPartialOperator.build(
+        coords, conn, "c3d10", E, NU, n_nodes=N, elems_per_cluster=24,
+        dtype=dt, device=cuda_device)
+    tp, m = op.plan, op.plan.meta
+    assert op.fuse == "" and m.lanes == 256
+    X = torch.as_tensor(np.random.default_rng(10).standard_normal(
+        (m.n_blocks, 384)), dtype=dt, device=cuda_device)
+    assert torch.equal(op.expand_stage(X),
+                       op.expand_stage(X, kernel=tpk.expand_plain))
+    cpu = tpufem_torch.PackedPartialOperator.build(
+        coords, conn, "c3d10", E, NU, plan=tp.to("cpu"),
+        geometry=(op.Jinv.cpu(), op.W.cpu()), dtype=dt, device="cpu")
+    assert torch.equal(op(X).cpu(), cpu(X.cpu()))
+
+
+K1_MESHES = {"c3d4": ("box_tet", (6, 5, 4)), "c3d8": ("box_hex", (6, 5, 4))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("etype", list(K1_MESHES))
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+def test_fused_yc_other_solids_bitwise(cuda_device, etype, dt):
+    """fused_yc's (4, 1) and (8, 8) instantiations on curved meshes."""
+    gen, dims = K1_MESHES[etype]
+    coords, conn = getattr(tpufem_torch.meshgen, gen)(*dims)
+    coords = coords.copy()
+    coords[:, 0] += 0.04 * np.sin(2.0 * coords[:, 1]) * coords[:, 2]
+    op = tpufem_torch.PackedPartialOperator.build(
+        coords, conn, etype, E, NU, n_nodes=coords.shape[0], dtype=dt,
+        device=cuda_device)
+    X = torch.as_tensor(np.random.default_rng(11).standard_normal(
+        (op.plan.meta.n_blocks, 384)), dtype=dt, device=cuda_device)
+    launches = tfk.FUSED_YC.launches
+    got = op.fused_stage(X)
+    assert tfk.FUSED_YC.launches > launches
+    assert torch.equal(got, op.fused_stage(X, kernel=tfk.fused_yc_plain))
+
+
+@pytest.mark.cuda
+def test_staged_block_solve_on_card_matches_cpu(cuda_device):
+    """The staged operator under block-Jacobi PCG on the card (expand,
+    compress_gather, combine) against the CPU path (their plain versions):
+    the same status, iterations within 3% and u to 1e-8 relative."""
+    coords, conn = tpufem_torch.meshgen.box_tet10(3, 3, 3)
+    N = coords.shape[0]
+    fixed = tpufem_torch.meshgen.boundary_nodes(coords, 2, 0.0)
+    b = np.zeros((N, 3))
+    b[tpufem_torch.meshgen.boundary_nodes(coords, 2, 1.0), 2] = -1e3
+    b /= np.linalg.norm(b)
+    res = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        op = tpufem_torch.PackedPartialOperator.build(
+            coords, conn, "c3d10", E, NU, n_nodes=N, fuse="",
+            dtype=torch.float64, device=dev)
+        counts = [K.launches for K in (tpk.EXPAND, tpk.COMPRESS_GATHER,
+                                       tpk.COMBINE)]
+        system = tpufem_torch.PackedSystem(op, fixed_nodes=fixed,
+                                           precondition="block")
+        u, info = system.solve(b, tol=1e-9, max_iter=2000)
+        if dev.type == "cuda":
+            assert all(K.launches > c for K, c in zip(
+                (tpk.EXPAND, tpk.COMPRESS_GATHER, tpk.COMBINE), counts))
+        res[dev.type] = (u.cpu(), int(info.status), int(info.iterations))
+    (ug, sg, ig), (uc, sc, ic) = res["cuda"], res["cpu"]
+    assert sg == sc == 1 and abs(ig - ic) <= max(1, 0.03 * ic)
+    assert float((ug - uc).abs().max() / uc.abs().max()) <= 1e-8

@@ -136,7 +136,7 @@ _ALL_MODULES = [
     "tpufem_torch.core.voigt", "tpufem_torch.ops.stiffness_kernels",
     "tpufem_torch.ops.scatter", "tpufem_torch.ops.operator",
     "tpufem_torch.ops.cluster_kernels", "tpufem_torch.ops.clustered",
-    "tpufem_torch.solvers.static",
+    "tpufem_torch.solvers.static", "tpufem_torch.ops.probe_fused",
 ]
 
 

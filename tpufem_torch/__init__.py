@@ -1,11 +1,16 @@
 """tpufem_torch: the PyTorch/CUDA port of tpufem for NVIDIA Hopper (H100).
 
-Two paths are ported, each on hand-written CUDA kernels:
+Three paths are ported, each on hand-written CUDA kernels:
 
-* the refined packed c3d10 solve: box meshes, the packed plan, the
-  matrix-free partial-assembly operator (kernels fused_yc, combine,
-  compress_gather), Jacobi PCG with chunked exact resume, and the f64
-  iterative-refinement outer loop;
+* the refined packed solve: box meshes, the packed plan, the matrix-free
+  partial-assembly operator (kernels fused_yc, combine, compress_gather),
+  Jacobi PCG with chunked exact resume, and the f64 iterative-refinement
+  outer loop;
+* the staged packed pipeline (fuse="", any elems_per_cluster: kernels
+  expand, compress_gather, combine around the planar element math) under
+  block-Jacobi PCG (block_diagonal, BlockJacobi) and the same refinement;
+  the planar variant (kernels expand_planar, compress_planar) in
+  ops.probe_fused;
 * the assembled-stiffness static solve: element stiffness (kernel
   stiffness_fused for k <= 10 types), the scatter-plan and the clustered
   operators (kernels cluster_expand, cluster_compress), Jacobi PCG through
@@ -38,10 +43,14 @@ from .ops.clustered import ClusteredOperator, ClusterPlan  # noqa: E402
 from .ops.fused_kernels import FUSED_YC, fused_yc  # noqa: E402
 from .ops.operator import (MatrixFreeOperator, block_operator,  # noqa: E402
                            diagonal_preconditioner, nodal_forces)
-from .ops.packed import (PackedConstraints, PackedPartialOperator,  # noqa: E402
-                         PackedPlan, PackedSystem)
-from .ops.packed_kernels import (COMBINE, COMPRESS_GATHER, combine,  # noqa: E402
-                                 compress_gather)
+from .ops import probe_fused  # noqa: E402
+from .ops.packed import (BlockJacobi, PackedConstraints,  # noqa: E402
+                         PackedPartialOperator, PackedPlan, PackedSystem,
+                         block_apply, invert_block_planes)
+from .ops.packed_kernels import (COMBINE, COMPRESS_GATHER,  # noqa: E402
+                                 COMPRESS_PLANAR, EXPAND, EXPAND_PLANAR,
+                                 combine, compress_gather, compress_planar,
+                                 expand, expand_planar)
 from .ops.scatter import CombinePlan, ScatterPlan  # noqa: E402
 from .ops.stiffness_kernels import STIFFNESS_FUSED, stiffness_fused  # noqa: E402
 from .solvers.cg import SolveInfo, cg  # noqa: E402
@@ -55,20 +64,25 @@ from .utils import meshgen  # noqa: E402
 PACKED_KERNELS = (FUSED_YC, COMBINE, COMPRESS_GATHER)
 # the CUDA kernels of the assembled-stiffness static solve
 STATIC_KERNELS = (STIFFNESS_FUSED, CLUSTER_EXPAND, CLUSTER_COMPRESS)
+# the CUDA kernels the staged and planar packed pipelines add (the staged
+# apply also runs COMPRESS_GATHER and COMBINE)
+STAGED_KERNELS = (EXPAND, EXPAND_PLANAR, COMPRESS_PLANAR)
 # every CUDA kernel of the package
-KERNELS = PACKED_KERNELS + STATIC_KERNELS
+KERNELS = PACKED_KERNELS + STATIC_KERNELS + STAGED_KERNELS
 
 __all__ = [
-    "CLUSTER_COMPRESS", "CLUSTER_EXPAND", "COMBINE", "COMPRESS_GATHER",
-    "ClusterPlan", "ClusteredOperator", "CombinePlan", "Constraints",
-    "ElementTable", "F64Operator", "FUSED_YC", "KERNELS",
-    "MatrixFreeOperator", "PACKED_KERNELS", "PackedConstraints",
-    "PackedPartialOperator", "PackedPlan", "PackedSystem", "RefineInfo",
-    "RefinedSystem", "STATIC_KERNELS", "STIFFNESS_FUSED", "ScatterPlan",
-    "SolveInfo", "StaticModel", "block_operator", "build_static_model", "cg",
-    "cluster_compress", "cluster_expand", "cluster_spmv", "combine",
-    "compress_gather", "cuda", "diagonal_preconditioner",
-    "elasticity_matrix", "element_table", "fused_yc", "lame_parameters",
-    "meshgen", "nodal_forces", "resolve_device", "solid",
-    "static_structure_solver", "stiffness_fused",
+    "BlockJacobi", "CLUSTER_COMPRESS", "CLUSTER_EXPAND", "COMBINE",
+    "COMPRESS_GATHER", "COMPRESS_PLANAR", "ClusterPlan", "ClusteredOperator",
+    "CombinePlan", "Constraints", "EXPAND", "EXPAND_PLANAR", "ElementTable",
+    "F64Operator", "FUSED_YC", "KERNELS", "MatrixFreeOperator",
+    "PACKED_KERNELS", "PackedConstraints", "PackedPartialOperator",
+    "PackedPlan", "PackedSystem", "RefineInfo", "RefinedSystem",
+    "STAGED_KERNELS", "STATIC_KERNELS", "STIFFNESS_FUSED", "ScatterPlan",
+    "SolveInfo", "StaticModel", "block_apply", "block_operator",
+    "build_static_model", "cg", "cluster_compress", "cluster_expand",
+    "cluster_spmv", "combine", "compress_gather", "compress_planar", "cuda",
+    "diagonal_preconditioner", "elasticity_matrix", "element_table",
+    "expand", "expand_planar", "fused_yc", "invert_block_planes",
+    "lame_parameters", "meshgen", "nodal_forces", "probe_fused",
+    "resolve_device", "solid", "static_structure_solver", "stiffness_fused",
 ]

@@ -57,27 +57,11 @@ fused_yc_kernel(const T* __restrict__ X, int64_t Nb,
   const int t = threadIdx.x;
   const int64_t b0 = static_cast<int64_t>(blockIdx.x) * cpb;
 
-  // 1. hop 1: window rows of X -> cluster slots
+  // 1. hop 1: window rows of X -> cluster slots (packed_common.cuh)
   for (int cl = 0; cl < cpb; ++cl) {
     const int64_t b = b0 + cl;
-    T v0 = T(0), v1 = T(0), v2 = T(0);
-    if (b < n) {
-      const int ws = wslot[b * kSlots + t];
-      if (ws < wk) {
-        const int row = win_nodes[b * Wn + ws];
-        if (row < Nb) {
-          const T* xr = X + static_cast<int64_t>(row) * kRow
-                        + jslot[b * kSlots + t];
-          v0 = xr[0];
-          v1 = xr[kSlots];
-          v2 = xr[2 * kSlots];
-        }
-      }
-    }
-    T* u = uc + cl * 3 * kSlots;
-    u[t] = v0;
-    u[kSlots + t] = v1;
-    u[2 * kSlots + t] = v2;
+    hop1_cluster<T>(X, Nb, win_nodes, Wn, wk, wslot, jslot, b, b < n, t,
+                    uc + cl * 3 * kSlots);
   }
   __syncthreads();
 
@@ -92,10 +76,11 @@ fused_yc_kernel(const T* __restrict__ X, int64_t Nb,
       T ue[3][K];
 #pragma unroll
       for (int kk = 0; kk < K; ++kk) {
-        const int sl = lc[kk * E_c];
-        ue[0][kk] = u[sl];
-        ue[1][kk] = u[kSlots + sl];
-        ue[2][kk] = u[2 * kSlots + sl];
+        T v[3];
+        hop2_lane<T>(u, lc[kk * E_c], v);
+        ue[0][kk] = v[0];
+        ue[1][kk] = v[1];
+        ue[2][kk] = v[2];
       }
       T F[3][K];
 #pragma unroll
@@ -185,8 +170,8 @@ fused_yc_kernel(const T* __restrict__ X, int64_t Nb,
     const int64_t b = b0 + cl;
     if (b >= n) break;
     T acc[3] = {T(0), T(0), T(0)};
-    compress_slot<T>(cinc + b * Wp * kSlots, t, fe + cl * 3 * Rp, Rp, vw,
-                     acc);
+    compress_slot<T>(cinc + b * Wp * kSlots, t,
+                     LaneMajor<T>{fe + cl * 3 * Rp, Rp}, vw, acc);
     T* o = out + b * kRow + t;
     o[0] = acc[0];
     o[kSlots] = acc[1];
@@ -242,11 +227,14 @@ int launch(const Args& a, const double* dN, double lam, double mu,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Built for c3d10 with its default 4-point rule only.
+// Built for the default rules of c3d10 (k = 10, q = 4), c3d4 (4, 1) and
+// c3d8 (8, 8); ops/fused_kernels.py KERNEL_KQ lists the same pairs.
 template <typename T>
 int dispatch(int k, int q, const Args& a, const double* dN, double lam,
              double mu, const VWidths& vw, cudaStream_t s) {
   if (k == 10 && q == 4) return launch<T, 10, 4>(a, dN, lam, mu, vw, s);
+  if (k == 4 && q == 1) return launch<T, 4, 1>(a, dN, lam, mu, vw, s);
+  if (k == 8 && q == 8) return launch<T, 8, 8>(a, dN, lam, mu, vw, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -21,7 +21,7 @@ import torch
 
 from . import cuda
 from .packed_kernels import (BLK, ROW, _check_widths, _emit, _out,
-                             compress_chunks_plain)
+                             compress_chunks_plain, hop1_plain, planar_chunks)
 
 FUSED_YC = cuda.CudaKernel(
     "fused_yc", "fused_yc.cu", "tpufem/ops/fused_kernels.py:222",
@@ -30,8 +30,9 @@ FUSED_YC = cuda.CudaKernel(
         cuda.I32, cuda.VP, cuda.VP, cuda.VP, cuda.I32, cuda.VP, cuda.I32,
         cuda.VP, cuda.I32, cuda.VP, cuda.I32, cuda.VP, cuda.F64, cuda.F64,
         cuda.VP, cuda.I32, cuda.VP, cuda.I64, cuda.VP]})
-# (k, q) the kernel is instantiated for: c3d10 with its default rule
-KERNEL_KQ = (10, 4)
+# (k, q) the kernel is instantiated for: the default rules of c3d10, c3d4
+# and c3d8 (csrc/fused_yc.cu dispatch)
+KERNEL_KQ = ((10, 4), (4, 1), (8, 8))
 
 
 def _pa_planes(ue, Ji, Wq, dN, lam, mu):
@@ -92,19 +93,11 @@ def fused_yc_plain(X, win_nodes, wslot, jslot, lconn, cinc, jinv, w, dN,
                    lam, mu, v_widths, *, wk: int,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same signature)."""
-    Nb = X.shape[0]
     n = wslot.shape[0]
     q, k, _ = np.asarray(dN).shape
     E_c = w.shape[2]
     qJ = jinv.shape[1] // 9
-    # hop 1: X rows by index; empty slots and padded rows read zero
-    ws = wslot.long()
-    valid = ws < wk
-    row = torch.gather(win_nodes.long(), 1, ws.clamp(max=max(wk - 1, 0)))
-    valid = valid & (row < Nb)
-    row = row.clamp(max=Nb - 1)
-    js = jslot.long()
-    uc = [torch.where(valid, X[row, c * BLK + js], 0.0) for c in range(3)]
+    uc = hop1_plain(X, win_nodes, wslot, jslot, wk)
     # hop 2: slots -> element planes [n, E_c]
     lc = lconn.long()
     ue = [[torch.gather(uc[c], 1, lc[:, kk * E_c:(kk + 1) * E_c])
@@ -113,20 +106,9 @@ def fused_yc_plain(X, win_nodes, wslot, jslot, lconn, cinc, jinv, w, dN,
            for i in range(3)] for qj in range(qJ)]
     Wq = [w[:, qi, :] for qi in range(q)]
     Fe = _pa_planes(ue, Ji, Wq, dN, lam, mu)
-    # element planes -> 128-lane chunks (lane r = kk * E_c + e)
-    per = BLK // E_c
     zero = torch.zeros((n, E_c), dtype=X.dtype, device=X.device)
-    chunks = []
-    for g in range(len(v_widths)):
-        parts = []
-        for c in range(3):
-            planes = []
-            for i in range(per):
-                kk = g * per + i
-                f = Fe[c][kk] if kk < k else None
-                planes.append(f if f is not None else zero)
-            parts.append(torch.cat(planes, dim=1))
-        chunks.append(parts)
+    chunks = planar_chunks(lambda c, kk: Fe[c][kk], k, E_c, len(v_widths),
+                           zero)
     return _emit(torch.cat(compress_chunks_plain(chunks, cinc, v_widths),
                            dim=1), out)
 
@@ -165,9 +147,9 @@ def fused_yc(X: torch.Tensor, win_nodes: torch.Tensor, wslot: torch.Tensor,
         raise RuntimeError(f"fused_yc: no kernel for {X.device}")
     cuda.check_cuda_args("fused_yc", X.device, X.dtype, floats=(X, jinv, w),
                          ints=(win_nodes, wslot, jslot, lconn, cinc))
-    if (k, q) != KERNEL_KQ:
-        raise ValueError(f"fused_yc: the kernel is built for (k, q) = "
-                         f"{KERNEL_KQ} only, got ({k}, {q})")
+    if (k, q) not in KERNEL_KQ:
+        raise ValueError(f"fused_yc: the kernel is built for (k, q) in "
+                         f"{KERNEL_KQ}, got ({k}, {q})")
     res = _out(out, n, X)
     dn = np.ascontiguousarray(dN.reshape(-1))
     FUSED_YC.launch(

@@ -12,11 +12,18 @@ compare bitwise with tpufem's and operator results agree to roundoff.
   (window Wn) and each node block receives from few clusters (window Wc).
 * Clusters and node blocks are sorted into window buckets; each bucket
   runs its kernels at its own window width.
-* One apply: per cluster bucket, the fused_yc kernel gathers X rows by
-  index, applies the partial-assembly action and sums each slot's element
-  lanes (Yc [B, 384]); per block bucket, the combine kernel sums each
-  node's cluster slots (F [Nb, 384]).  No window rows (Xw, Ycw) are
-  materialized: the kernels read rows of X and Yc by index.
+* One apply, fused (fuse="dense"/"narrow", the default when E_c divides
+  128): per cluster bucket, the fused_yc kernel gathers X rows by index,
+  applies the partial-assembly action and sums each slot's element lanes
+  (Yc [B, 384]).  Staged (fuse="", any E_c): per cluster bucket the
+  expand kernel writes the element lanes ue [B, 3, Rp]; the planar
+  element math runs once over all clusters in plain PyTorch; the
+  compress_gather kernel sums the slots.  Then, per block bucket, the
+  combine kernel sums each node's cluster slots (F [Nb, 384]).  No window
+  rows (Xw, Ycw) are materialized: the kernels read rows of X and Yc by
+  index.
+* Block Jacobi: the assembled 3x3 node-block diagonal (block_diagonal),
+  inverted in closed form per node (invert_block_planes, BlockJacobi).
 """
 from __future__ import annotations
 
@@ -625,20 +632,91 @@ def pa_diag_planar(Jinv, W, dN, lam, mu):
     return torch.stack([torch.stack(out[a]) for a in range(3)])
 
 
+def pa_blockdiag_planar(Jinv, W, dN, lam, mu):
+    """Assembled node-block 3x3 diagonal contributions: per quadrature
+    point and element node with g = J^-T dNhat, the (k, k) block of the
+    element stiffness is W ((lam + mu) g g^T + mu |g|^2 I).  Returns
+    (diag [3, k, B, E_c] for components (00, 11, 22), off [3, k, B, E_c]
+    for (01, 02, 12)), in tpufem's operation order."""
+    dN = np.asarray(dN)
+    q, k, _ = dN.shape
+    qJ = Jinv.shape[0]
+    diag = [[None] * k for _ in range(3)]
+    off = [[None] * k for _ in range(3)]
+    pairs = ((0, 1), (0, 2), (1, 2))
+    for qi in range(q):
+        Wq = W[qi]
+        for kk in range(k):
+            gvec = [sum(float(dN[qi, kk, j]) * Jinv[min(qi, qJ - 1), 3 * i + j]
+                        for j in range(3)) for i in range(3)]
+            norm2 = gvec[0] * gvec[0] + gvec[1] * gvec[1] + gvec[2] * gvec[2]
+            for a in range(3):
+                term = Wq * ((lam + mu) * gvec[a] * gvec[a] + mu * norm2)
+                prev = diag[a][kk]
+                diag[a][kk] = term if prev is None else prev + term
+            for idx, (a, c) in enumerate(pairs):
+                term = Wq * ((lam + mu) * gvec[a] * gvec[c])
+                prev = off[idx][kk]
+                off[idx][kk] = term if prev is None else prev + term
+    return (torch.stack([torch.stack(r) for r in diag]),
+            torch.stack([torch.stack(r) for r in off]))
+
+
+def lanes_to_planar(ue: torch.Tensor, k: int, E_c: int) -> torch.Tensor:
+    """[B, 3, Rp] -> contiguous [3, k, B, E_c] (lanes r = kk * E_c + e)."""
+    B = ue.shape[0]
+    return ue[:, :, :k * E_c].reshape(B, 3, k, E_c).permute(
+        1, 2, 0, 3).contiguous()
+
+
+def planar_to_lanes(fe3: torch.Tensor, Rp: int) -> torch.Tensor:
+    """[3, k, B, E_c] -> contiguous [B, 3, Rp] (pad lanes zero)."""
+    _, k, B, E_c = fe3.shape
+    Fe = fe3.new_zeros((B, 3, Rp))
+    Fe[:, :, :k * E_c] = fe3.permute(2, 0, 1, 3).reshape(B, 3, k * E_c)
+    return Fe
+
+
 # ---------------------------------------------------------------------------
 # operator
 # ---------------------------------------------------------------------------
 
+FUSE_MODES = ("", "dense", "narrow")
+
+
+def _as_float(g, dtype, dev) -> torch.Tensor:
+    if not torch.is_tensor(g):     # a copy: another package's array may
+        g = np.array(g)              # be read-only
+    return torch.as_tensor(g, dtype=dtype, device=dev)
+
+
 class PackedPartialOperator(torch.nn.Module):
     """X [Nb, 384] -> F [Nb, 384]; geometry-factor element compute.
 
-    Buffers: the plan tables and the cluster-major geometry Jinv
-    [B, qJ*9, E_c] and W [B, q, E_c] (w * detJ, zero on pad elements)."""
+    Buffers: the plan tables and the geometry J^-1 and W (w * detJ, zero on
+    pad elements) in the layout of the mode (tpufem's): cluster-major
+    [B, qJ*9, E_c] / [B, q, E_c] for the fused modes ("dense", "narrow":
+    kernel fused_yc), planar [qJ, 9, B, E_c] / [q, B, E_c] for the staged
+    mode ("": kernels expand and compress_gather around the planar element
+    math).  "dense" and "narrow" are two TPU layouts of one function; both
+    run fused_yc here."""
 
     def __init__(self, plan: PackedPlan, Jinv: torch.Tensor, W: torch.Tensor,
-                 dN: np.ndarray, lam: float, mu: float):
+                 dN: np.ndarray, lam: float, mu: float,
+                 fuse: Optional[str] = None):
+        """fuse=None: "dense" for cluster-major (3-D) geometry, "" for
+        planar (4-D)."""
         super().__init__()
+        if fuse is None:
+            fuse = "dense" if Jinv.dim() == 3 else ""
+        if fuse not in FUSE_MODES:
+            raise ValueError(f"fuse must be one of {FUSE_MODES}, got {fuse!r}")
+        if Jinv.dim() != (3 if fuse else 4):
+            raise ValueError(f"fuse={fuse!r} stores Jinv "
+                             f"{'[B, qJ*9, E_c]' if fuse else '[qJ, 9, B, E_c]'}"
+                             f", got {tuple(Jinv.shape)}")
         self.plan = plan
+        self.fuse = fuse
         self.register_buffer("Jinv", Jinv)
         self.register_buffer("W", W)
         self.dN = np.asarray(dN, np.float64)          # host [q, k, 3]
@@ -649,11 +727,15 @@ class PackedPartialOperator(torch.nn.Module):
               n_nodes: Optional[int] = None, rule: str = "default",
               plan: Optional[PackedPlan] = None, affine: Optional[bool] = None,
               dtype=torch.float32, elems_per_cluster: int = 32,
-              window_buckets: int = 8, geometry: Optional[Tuple] = None,
+              window_buckets: int = 8, fuse: Optional[str] = None,
+              geometry: Optional[Tuple] = None,
               device=None) -> "PackedPartialOperator":
-        """geometry: optional (Jinv, W) in the cluster-major layout
-        ([B, qJ*9, E_c], [B, q, E_c]) that tpufem's fuse="dense" operator
-        stores; skips the geometry pass."""
+        """fuse: None picks tpufem's rule, "dense" when elems_per_cluster
+        divides 128, else "" (staged); "dense"/"narrow" need it to divide
+        128.  geometry: optional (Jinv, W) taken from an operator of either
+        layout (tpufem's or the port's, arrays or tensors): cluster-major
+        [B, qJ*9, E_c] / [B, q, E_c] or planar [qJ, 9, B, E_c] /
+        [q, B, E_c]; skips the geometry pass."""
         from ..core.materials import lame_parameters
         from ..elements.tables import element_table
         from .partial import chunked_geometry
@@ -671,16 +753,27 @@ class PackedPartialOperator(torch.nn.Module):
         m = plan.meta
         table = element_table(etype, rule)
         B, E_c = m.n_clusters, m.elems_per_cluster
-        if BLK % E_c:
-            raise ValueError("elems_per_cluster must divide 128")
+        if fuse is None:
+            fuse = "dense" if BLK % E_c == 0 else ""
+        if fuse not in FUSE_MODES:
+            raise ValueError(f"fuse must be one of {FUSE_MODES}, got {fuse!r}")
+        if fuse and BLK % E_c:
+            raise ValueError(f"fuse={fuse!r} needs elems_per_cluster to "
+                             f"divide 128 (got {E_c}); use fuse=''")
         if geometry is not None:
-            Jp = torch.tensor(np.asarray(geometry[0]), dtype=dtype,
-                              device=dev)
-            Wp = torch.tensor(np.asarray(geometry[1]), dtype=dtype,
-                              device=dev)
-            if Jp.shape[0] != B or Wp.shape[0] != B or Jp.shape[2] != E_c:
+            Jg, Wg = (_as_float(g, dtype, dev) for g in geometry)
+            if (Jg.dim() == 3 and Wg.dim() == 3 and Jg.shape[0] == B
+                    and Jg.shape[1] % 9 == 0 and Jg.shape[2] == E_c
+                    and Wg.shape[0] == B and Wg.shape[2] == E_c):
+                Jpl = Jg.reshape(B, Jg.shape[1] // 9, 9, E_c).permute(
+                    1, 2, 0, 3)
+                Wpl = Wg.permute(1, 0, 2)
+            elif (Jg.dim() == 4 and Wg.dim() == 3 and Jg.shape[1] == 9
+                  and Jg.shape[2:] == (B, E_c) and Wg.shape[1:] == (B, E_c)):
+                Jpl, Wpl = Jg, Wg
+            else:
                 raise ValueError(f"geometry layout mismatch: Jinv "
-                                 f"{tuple(Jp.shape)}, W {tuple(Wp.shape)}, "
+                                 f"{tuple(Jg.shape)}, W {tuple(Wg.shape)}, "
                                  f"B={B}, E_c={E_c}")
         else:
             esrc = plan.esrc.long()
@@ -696,31 +789,52 @@ class PackedPartialOperator(torch.nn.Module):
                 Jinv = Jinv[:, :1]
             qJ = Jinv.shape[1]
             q = W.shape[1]
-            Jp = Jinv.reshape(B, E_c, qJ, 9).permute(0, 2, 3, 1).reshape(
-                B, qJ * 9, E_c).contiguous()
-            Wp = W.reshape(B, E_c, q).permute(0, 2, 1).contiguous()
+            Jpl = Jinv.reshape(B, E_c, qJ, 9).permute(2, 3, 0, 1)
+            Wpl = W.reshape(B, E_c, q).permute(2, 0, 1)
+        if fuse:
+            qJ = Jpl.shape[0]
+            Jp = Jpl.permute(2, 0, 1, 3).reshape(B, qJ * 9, E_c).contiguous()
+            Wp = Wpl.permute(1, 0, 2).contiguous()
+        else:
+            Jp, Wp = Jpl.contiguous(), Wpl.contiguous()
         lam, mu = lame_parameters(E, nu)
-        return PackedPartialOperator(plan, Jp, Wp, table.dN, lam, mu)
+        return PackedPartialOperator(plan, Jp, Wp, table.dN, lam, mu, fuse)
 
     def _planar_geom(self):
-        """(Jinv [qJ, 9, B, E_c], W [q, B, E_c]) views of the geometry."""
+        """(Jinv [qJ, 9, B, E_c], W [q, B, E_c]): the staged mode's own
+        buffers, views of the fused modes' (the diagonals and the staged
+        element math read this layout)."""
+        if not self.fuse:
+            return self.Jinv, self.W
         m = self.plan.meta
         B, E_c = m.n_clusters, m.elems_per_cluster
         qJ = self.Jinv.shape[1] // 9
         Jp = self.Jinv.reshape(B, qJ, 9, E_c).permute(1, 2, 0, 3)
         return Jp, self.W.permute(1, 0, 2)
 
-    # Each stage loops over its buckets and calls `kernel` once per bucket:
-    # the wrapper by default; the kernel's plain version has the same
-    # signature, so a caller can run a stage through it for comparison.
+    def cluster_geometry(self):
+        """(Jinv [B, qJ*9, E_c], W [B, q, E_c]), contiguous: the fused
+        modes' own buffers, a copy of the staged mode's."""
+        if self.fuse:
+            return self.Jinv, self.W
+        qJ, _, B, E_c = self.Jinv.shape
+        return (self.Jinv.permute(2, 0, 1, 3).reshape(B, qJ * 9, E_c)
+                .contiguous(), self.W.permute(1, 0, 2).contiguous())
 
-    def fused_stage(self, X: torch.Tensor, kernel=fk.fused_yc
-                    ) -> torch.Tensor:
-        """X [Nb, 384] -> cluster slot sums Yc [B, 384] (per cluster
-        bucket)."""
+    # Each stage loops over its buckets and calls its kernel(s) once per
+    # bucket: the wrapper by default; the kernel's plain version has the
+    # same signature, so a caller can run a stage through it for
+    # comparison.
+
+    def fused_stage(self, X: torch.Tensor, kernel=fk.fused_yc,
+                    geometry=None) -> torch.Tensor:
+        """X [Nb, 384] -> cluster slot sums Yc [B, 384] through fused_yc
+        (per cluster bucket).  geometry: cluster-major (Jinv, W), default
+        cluster_geometry()."""
         p = self.plan
         m = p.meta
         lam, mu = self.lam_mu
+        jinv, w = geometry if geometry is not None else self.cluster_geometry()
         Yc = torch.empty((m.n_clusters, ROW), dtype=X.dtype, device=X.device)
         for gi, (s, n, wk) in enumerate(m.c_groups):
             if wk == 0 or n == 0:      # pad-only clusters -> zero slot sums
@@ -728,9 +842,46 @@ class PackedPartialOperator(torch.nn.Module):
                 continue
             sl = slice(s, s + n)
             kernel(X, p.win_nodes[sl], p.wslot[sl], p.jslot[sl], p.lconn[sl],
-                   p.cinc[gi], self.Jinv[sl], self.W[sl], self.dN, lam, mu,
+                   p.cinc[gi], jinv[sl], w[sl], self.dN, lam, mu,
                    m.cv_widths[gi], wk=wk, out=Yc[sl])
         return Yc
+
+    def expand_stage(self, X: torch.Tensor, kernel=pk.expand
+                     ) -> torch.Tensor:
+        """X [Nb, 384] -> element-lane values ue [B, 3, Rp] (per cluster
+        bucket; pad-only buckets zero)."""
+        p = self.plan
+        m = p.meta
+        ue = torch.empty((m.n_clusters, 3, m.lanes), dtype=X.dtype,
+                         device=X.device)
+        for (s, n, wk) in m.c_groups:
+            if wk == 0 or n == 0:
+                ue[s:s + n].zero_()
+                continue
+            sl = slice(s, s + n)
+            kernel(X, p.win_nodes[sl], p.wslot[sl], p.jslot[sl], p.lconn[sl],
+                   wk=wk, out=ue[sl])
+        return ue
+
+    def element_forces(self, ue3: torch.Tensor) -> torch.Tensor:
+        """Planar element values [3, k, B, E_c] -> element forces (the
+        partial-assembly action, plain PyTorch, all clusters at once)."""
+        Jp, Wp = self._planar_geom()
+        return pa_apply_planar(ue3, Jp, Wp, self.dN, *self.lam_mu)
+
+    def staged_stage(self, X: torch.Tensor, expand=pk.expand,
+                     compress=pk.compress_gather) -> torch.Tensor:
+        """X [Nb, 384] -> Yc [B, 384], tpufem's staged pipeline: expand
+        (per bucket) -> lanes_to_planar -> the element math once over all
+        clusters (elementwise, so the same as per bucket) ->
+        planar_to_lanes -> compress_gather (per bucket).  tpufem's
+        row chunking only bounds its materialized Xw and does not change
+        any per-cluster sum, so there is none here."""
+        m = self.plan.meta
+        ue3 = lanes_to_planar(self.expand_stage(X, expand),
+                              m.nodes_per_elem, m.elems_per_cluster)
+        fe3 = self.element_forces(ue3)
+        return self.compress_stage(planar_to_lanes(fe3, m.lanes), compress)
 
     def combine_stage(self, Yc: torch.Tensor, kernel=pk.combine
                       ) -> torch.Tensor:
@@ -762,17 +913,107 @@ class PackedPartialOperator(torch.nn.Module):
         return Yc
 
     def forward(self, X: torch.Tensor) -> torch.Tensor:
-        return self.combine_stage(self.fused_stage(X))
+        Yc = self.fused_stage(X) if self.fuse else self.staged_stage(X)
+        return self.combine_stage(Yc)
 
     def diagonal(self) -> torch.Tensor:
         """Assembled diagonal as a packed field [Nb, 384]."""
-        m = self.plan.meta
-        B, k, E_c = m.n_clusters, m.nodes_per_elem, m.elems_per_cluster
         Jp, Wp = self._planar_geom()
         d3 = pa_diag_planar(Jp, Wp, self.dN, *self.lam_mu)  # [3, k, B, E_c]
-        Fe = torch.zeros((B, 3, m.lanes), dtype=d3.dtype, device=d3.device)
-        Fe[:, :, :k * E_c] = d3.permute(2, 0, 1, 3).reshape(B, 3, k * E_c)
-        return self.combine_stage(self.compress_stage(Fe))
+        return self.combine_stage(self.compress_stage(
+            planar_to_lanes(d3, self.plan.meta.lanes)))
+
+    def block_diagonal(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Assembled 3x3 node-block diagonal as two packed fields
+        ([Nb, 384] each): diagonal components (00, 11, 22) and off-diagonal
+        components (01, 02, 12).  compress_gather twice per cluster bucket,
+        then combine twice per block bucket."""
+        Jp, Wp = self._planar_geom()
+        Rp = self.plan.meta.lanes
+        d3, o3 = pa_blockdiag_planar(Jp, Wp, self.dN, *self.lam_mu)
+        Ycs = [self.compress_stage(planar_to_lanes(f3, Rp))
+               for f3 in (d3, o3)]
+        return self.combine_stage(Ycs[0]), self.combine_stage(Ycs[1])
+
+
+# ---------------------------------------------------------------------------
+# block-Jacobi preconditioner (3x3 node blocks, packed layout)
+# ---------------------------------------------------------------------------
+
+def invert_block_planes(D: torch.Tensor, O: torch.Tensor, mask=None):
+    """Packed 3x3 node-block planes -> inverse planes.
+
+    D [*, 384] holds (d00, d11, d22), O holds (d01, d02, d12).  Closed-form
+    symmetric adjugate/det inverse per node; singular blocks fall back to
+    the scalar-Jacobi diagonal.  With `mask` (0/1 packed field), masked
+    DOFs are decoupled before inversion (row/col dropped) and the inverse
+    rows are zeroed after.  Returns (inv_d, inv_o) in the same layout, in
+    tpufem's operation order."""
+    a, b, c = D[..., :BLK], D[..., BLK:2 * BLK], D[..., 2 * BLK:]
+    d, e, f = O[..., :BLK], O[..., BLK:2 * BLK], O[..., 2 * BLK:]
+    if mask is not None:
+        m0, m1, m2 = (mask[..., :BLK], mask[..., BLK:2 * BLK],
+                      mask[..., 2 * BLK:])
+        d = d * m0 * m1
+        e = e * m0 * m2
+        f = f * m1 * m2
+    cof00 = b * c - f * f
+    cof01 = e * f - d * c
+    cof02 = d * f - b * e
+    det = a * cof00 + d * cof01 + e * cof02
+    safe = torch.isfinite(det) & (torch.abs(det) > 0)
+    inv_det = torch.where(safe, 1.0 / torch.where(safe, det, 1.0), 0.0)
+
+    def scal(x):         # scalar-Jacobi fallback for singular blocks
+        return torch.where(torch.abs(x) > 0,
+                           1.0 / torch.where(x == 0, 1.0, x), 0.0)
+
+    i00 = torch.where(safe, cof00 * inv_det, scal(a))
+    i11 = torch.where(safe, (a * c - e * e) * inv_det, scal(b))
+    i22 = torch.where(safe, (a * b - d * d) * inv_det, scal(c))
+    i01 = torch.where(safe, cof01 * inv_det, 0.0)
+    i02 = torch.where(safe, cof02 * inv_det, 0.0)
+    i12 = torch.where(safe, (d * e - a * f) * inv_det, 0.0)
+    inv_d = torch.cat([i00, i11, i22], dim=-1)
+    inv_o = torch.cat([i01, i02, i12], dim=-1)
+    if mask is not None:
+        inv_d = inv_d * mask
+        inv_o = inv_o * mask
+    return inv_d, inv_o
+
+
+def block_apply(inv_d: torch.Tensor, inv_o: torch.Tensor, r: torch.Tensor
+                ) -> torch.Tensor:
+    """z = B^-1 r per node on packed planes."""
+    r0, r1, r2 = r[..., :BLK], r[..., BLK:2 * BLK], r[..., 2 * BLK:]
+    i00, i11, i22 = (inv_d[..., :BLK], inv_d[..., BLK:2 * BLK],
+                     inv_d[..., 2 * BLK:])
+    i01, i02, i12 = (inv_o[..., :BLK], inv_o[..., BLK:2 * BLK],
+                     inv_o[..., 2 * BLK:])
+    z0 = i00 * r0 + i01 * r1 + i02 * r2
+    z1 = i01 * r0 + i11 * r1 + i12 * r2
+    z2 = i02 * r0 + i12 * r1 + i22 * r2
+    return torch.cat([z0, z1, z2], dim=-1)
+
+
+class BlockJacobi:
+    """z = B_n^-1 r_n per node: exact 3x3 node-block Jacobi, a callable
+    M_inv for solvers.cg.  inv_d [Nb, 384] holds (i00, i11, i22), inv_o
+    (i01, i02, i12)."""
+
+    def __init__(self, inv_d: torch.Tensor, inv_o: torch.Tensor):
+        self.inv_d = inv_d
+        self.inv_o = inv_o
+
+    @staticmethod
+    def build(op: PackedPartialOperator, mask=None) -> "BlockJacobi":
+        """mask: optional packed [Nb, 384] 0/1 field (fixed DOFs zero),
+        decoupled before the inversion."""
+        D, O = op.block_diagonal()
+        return BlockJacobi(*invert_block_planes(D, O, mask))
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        return block_apply(self.inv_d, self.inv_o, r)
 
 
 # ---------------------------------------------------------------------------
@@ -820,21 +1061,22 @@ class PackedConstraints:
 # ---------------------------------------------------------------------------
 
 class PackedSystem:
-    """Operator + fixed-node constraints + scalar Jacobi; PCG in the packed
-    [Nb, 384] layout (solvers.cg)."""
+    """Operator + fixed-node constraints + a Jacobi or block-Jacobi
+    preconditioner; PCG in the packed [Nb, 384] layout (solvers.cg)."""
 
     def __init__(self, op: PackedPartialOperator, fixed_nodes=None,
                  precondition="jacobi"):
-        """precondition: "jacobi" (scalar diagonal from op.diagonal()) or
-        False/None.  The block-Jacobi option is not ported yet."""
+        """precondition: "jacobi" (scalar diagonal from op.diagonal()),
+        "block" (exact 3x3 node-block inverse, BlockJacobi) or
+        False/None."""
         self.op = op
         plan = op.plan
         dtype = op.W.dtype
         self.pc = PackedConstraints.fixed(plan, fixed_nodes, dtype)
         self.mask = self.pc.mask
         if precondition == "block":
-            raise NotImplementedError("block Jacobi is not ported yet")
-        if precondition:                # "jacobi" / True
+            self.M_inv = BlockJacobi.build(op, mask=self.mask)
+        elif precondition:              # "jacobi" / True
             d = op.diagonal()
             minv = torch.where(torch.abs(d) > 0,
                                1.0 / torch.where(d == 0, 1.0, d), 0.0)
