@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Drive tpufem_torch's three ported paths on one CUDA card: the refined
-packed c3d10 solve, the assembled-stiffness static solve, and the staged
-packed pipeline under the block-Jacobi refined solve.
+"""Drive tpufem_torch's three ported paths and its three probes on one
+CUDA card: the refined packed c3d10 solve, the assembled-stiffness static
+solve, the staged packed pipeline under the block-Jacobi refined solve,
+and the relayout, row-read and planar-I/O probes.
 
     python3 chip_smoke.py            # box_tet10(55): 1.00M elements, 4.1M DOF
     python3 chip_smoke.py --n 10     # a quick check at 6k elements
-    python3 chip_smoke.py --phases staged   # one path (packed, static, staged)
+    python3 chip_smoke.py --phases staged   # some paths (packed, static,
+                                            # staged, probes)
 
 Phases (any failure exits non-zero, and the last line is then not
 printed):
@@ -71,7 +73,23 @@ printed):
       torch.profiler over 20 block-Jacobi PCG iterations; each new
       kernel's device ms per sweep, bound, plain ms and library yardstick
       (torch.take for K4/K5a, index_add_ for K5b; phase 4 adds index_add_
-      for K2/K3).
+      for K2/K3); 9a adds K1's c3d4 and c3d8 device ms and bounds on
+      curved box_tet(n) and box_hex(m) meshes of about 6 n^3 elements.
+  The probes (no mesh; B = 39,360, box_tet10(55)'s cluster count):
+  10a. relayout_fwd (every variant), relayout_inv (every variant),
+       row_accumulate, planar_write and planar_read against their plain
+       versions, bitwise: the relayouts on one f32 [B, 3, 384] field
+       (22,140 tiles), the row kernel at the row probe's defaults (and
+       embedding_bag to 1e-6 relative), the planar kernels at B = 2688
+       and B with E_c = 32 and 16, with the zero-filled round trip;
+  10b. main path, every launch count set to 0 first: the mains of
+       ops.probe_reshape, ops.probe_rowdma and ops.probe_planar_io at their
+       defaults; fails unless every relayout candidate is right, both
+       planar errors are 0 and every probe kernel launched;
+  10c. each kernel's device ms per launch (torch.profiler) at the 10a
+       sizes, bound (bytes over 3.35 TB/s), plain ms and one library
+       call's ms (CUDA events): clone() of the reshaped view, embedding_bag,
+       the permuted view's contiguous(), copy_ into a zeroed output.
 It then prints {"kernels": [...]} (the static kernels' numbers are
 float64, the main path's type, with the float32 ones beside them), the
 card's name and power limit, and, last, {"ok": true, "device": ...}.
@@ -104,18 +122,21 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
+def time_ms(fn, reps: int, warmup: int = 2, before=None) -> float:
     """Median milliseconds of fn() over `reps` runs, from CUDA events."""
-    return statistics.median(event_times(fn, reps, warmup))
+    return statistics.median(event_times(fn, reps, warmup, before))
 
 
-def event_times(fn, reps: int, warmup: int = 2):
-    """Milliseconds of each of `reps` runs of fn(), from CUDA events."""
+def event_times(fn, reps: int, warmup: int = 2, before=None):
+    """Milliseconds of each of `reps` runs of fn(), from CUDA events;
+    before(), if given, runs ahead of each run, untimed."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     evs = []
     for _ in range(reps):
+        if before is not None:
+            before()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -944,6 +965,33 @@ def staged_phase(args, dev, ctx, tip_fused):
             f"{o.Jinv.shape[1] // 9}): bitwise equal in f32 and f64 on "
             f"{cn.shape[0]} elements")
     del o, x, got, want
+    # K1's c3d4 and c3d8 sweeps at the main path's element count (curved
+    # box_tet(n) and box_hex(m), 6 n^3 and m^3 elements), f32: device ms
+    # and the bound, as phase 4 counts them for c3d10
+    k1_other = {}
+    m_hex = round((6 * n ** 3) ** (1 / 3))
+    for et, gen, dims in (("c3d4", "box_tet", (n, n, n)),
+                          ("c3d8", "box_hex", (m_hex,) * 3)):
+        c, cn = getattr(tt.meshgen, gen)(*dims)
+        c = c.copy()
+        c[:, 0] += 0.04 * np.sin(2.0 * c[:, 1]) * c[:, 2]
+        o = tt.PackedPartialOperator.build(c, cn, et, E, NU,
+                                           n_nodes=c.shape[0], dtype=f32,
+                                           device=dev)
+        x = torch.as_tensor(rng.standard_normal((o.plan.meta.n_blocks, 384)),
+                            dtype=f32, device=dev)
+        ms = kernel_device_ms(lambda: o.fused_stage(x), args.reps,
+                              "fused_yc_kernel")
+        nbytes, flops = bounds(o, 4, cn.shape[0])["fused_yc"]
+        b_ms, b_by = bound_ms(nbytes, flops)
+        k1_other[et] = dict(elements=int(cn.shape[0]), ms=ms, bound_ms=b_ms,
+                            bound_by=b_by)
+        log(f"time fused_yc {et}: {gen}{dims} {cn.shape[0]} elements, B="
+            f"{o.plan.meta.n_clusters}, qJ={o.Jinv.shape[1] // 9}: "
+            f"{ms:.4f} ms device per f32 sweep (torch.profiler); bound "
+            f"{b_ms:.4f} ms by {b_by} ({nbytes} bytes, {flops} flops; "
+            f"{b_ms / ms:.1%} of it)")
+    del o, x
 
     # 9b. operator cross-checks on the whole mesh; the planar pipeline's
     # launches are counted here (its path)
@@ -1108,7 +1156,208 @@ def staged_phase(args, dev, ctx, tip_fused):
             f"{lib_ms:.4f} ms (difference to the kernel {lib_err[name]:.1e})")
     staged_launches = {name: launches[name] for name in ("compress_gather",
                                                          "combine")}
-    return rows, staged_launches
+    return rows, staged_launches, k1_other
+
+
+# phase 10's full size: box_tet10(55)'s packed plan has B = 39,360
+# clusters; one f32 [B, 3, 384] field is 22,140 [64, 32] tiles (181 MB)
+PROBE_B = 39360
+PROBE_TILES = PROBE_B * 3 * 384 // (64 * 32)
+# the row probe's defaults (ops/probe_rowdma.py)
+ROWDMA_SRC, ROWDMA_READS = 198208, 1 << 20
+
+
+def probes_phase(args, dev):
+    """The three probes and their five kernels (phase 10 of the module
+    docstring).  Returns their {"kernels"} rows."""
+    import tpufem_torch as tt
+    from tpufem_torch.ops import probe_kernels as pk
+    from tpufem_torch.ops import probe_planar_io, probe_reshape, probe_rowdma
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 3)
+
+    def must_equal(name, got, want, what=""):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"{name}{what} differs from its plain version: max |d| "
+                 f"{float((got - want).abs().max()):.3e}")
+
+    # 10a. parity at full size, bitwise (so max_abs_err is 0): every
+    # relayout variant on one [B, 3, 384] field, the row kernel at the
+    # probe's defaults, the planar write and read at the probe's B and at
+    # PROBE_B
+    T = PROBE_TILES
+    x = torch.randn((T, 64, 32), generator=gen, device=dev)
+    y = x.reshape(T, 16, 128)
+    for v in pk.FWD_VARIANTS:
+        got = pk.relayout_fwd(x, v)
+        must_equal("relayout_fwd", got, pk.relayout_fwd_plain(x, v),
+                   f" variant {v}")
+        must_equal("relayout_fwd", got, y, f" variant {v} (the reshape)")
+    for v in pk.INV_VARIANTS:
+        got = pk.relayout_inv(y, v)
+        must_equal("relayout_inv", got, pk.relayout_inv_plain(y, v),
+                   f" variant {v}")
+        must_equal("relayout_inv", got, x, f" variant {v} (the round trip)")
+    log(f"parity relayout_fwd variants {pk.FWD_VARIANTS}, relayout_inv "
+        f"variants {pk.INV_VARIANTS}: bitwise equal to the plain versions "
+        f"and to the reshape on {T} tiles ({x.numel() * 4 / 1e6:.1f} MB)")
+    del got
+
+    src = torch.randn((ROWDMA_SRC, pk.ROW), generator=gen, device=dev)
+    idx = torch.randint(0, ROWDMA_SRC, (ROWDMA_READS,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    rows = pk.row_accumulate(src, idx)
+    must_equal("row_accumulate", rows, pk.row_accumulate_plain(src, idx))
+    bag_ix = idx.view(-1, pk.READS).long()
+    bag = torch.nn.functional.embedding_bag(bag_ix, src, mode="sum")
+    bag_rel = max_rel(bag, rows[:, 0])
+    if not bag_rel <= 1e-6:
+        fail(f"row_accumulate against embedding_bag: max rel {bag_rel:.3e}")
+    log(f"parity row_accumulate: bitwise equal on {ROWDMA_READS} reads of "
+        f"{ROWDMA_SRC} rows; embedding_bag max rel {bag_rel:.1e}")
+
+    planar_in = {}
+    for B, k, E_c in ((2688, 10, 32), (PROBE_B, 10, 32), (PROBE_B, 10, 16)):
+        Rp = pk.planar_lanes(k, E_c)
+        v = torch.randn((B, 3, Rp), generator=gen, device=dev)
+        p = pk.planar_write(v, k, E_c)
+        must_equal("planar_write", p, pk.planar_write_plain(v, k, E_c),
+                   f" (B {B}, k {k}, E_c {E_c})")
+        back = pk.planar_read(p)
+        must_equal("planar_read", back, pk.planar_read_plain(p),
+                   f" (B {B}, k {k}, E_c {E_c})")
+        masked = v.clone()
+        masked[:, :, k * E_c:] = 0.0
+        must_equal("planar round trip", back, masked,
+                   f" (B {B}, k {k}, E_c {E_c})")
+        if (B, E_c) == (PROBE_B, 32):
+            planar_in = dict(v=v, p=p, k=k, E_c=E_c, Rp=Rp)
+        log(f"parity planar_write, planar_read B={B} k={k} E_c={E_c} "
+            f"Rp={Rp}: bitwise equal; round trip exact, lanes >= {k * E_c} "
+            f"zero")
+    del back, masked
+
+    # 10b. main path: the three probes at their defaults, every count 0
+    # just before, read just after
+    for K in tt.KERNELS:
+        K.launches = 0
+    t0 = time.perf_counter()
+    reshape = probe_reshape.main(device=dev)
+    rowdma = probe_rowdma.main(device=dev)
+    planar = probe_planar_io.main(device=dev)
+    torch.cuda.synchronize()
+    launches = {K.name: K.launches for K in tt.PROBE_KERNELS}
+    log(f"main path (probes): {time.perf_counter() - t0:.2f} s; launches "
+        f"{launches}")
+    if not all(reshape.values()):
+        fail(f"relayout candidates wrong: {reshape}")
+    if planar["write_err"] != 0.0 or planar["read_err"] != 0.0:
+        fail(f"planar errors {planar['write_err']}, {planar['read_err']}")
+    for name, c in launches.items():
+        if c <= 0:
+            fail(f"kernel {name} was not launched by the probes")
+
+    # 10c. device ms per launch (torch.profiler) at the 10a sizes, plain ms
+    # and one library call for the same function (CUDA events), bounds;
+    # each timed call finds the L2 cold: a read of 256 MB runs before it
+    # (untimed, and not a kernel the profiler's key selects)
+    reps = args.reps
+    l2_flush = torch.zeros(64 << 20, device=dev)
+
+    def flush():
+        l2_flush.sum()
+
+    def kernel_ms(fn, key):
+        return kernel_device_ms(lambda: (flush(), fn()), reps, key)
+
+    def events_ms(fn, n=reps, warmup=2):
+        return time_ms(fn, n, warmup, before=flush)
+
+    relayout_bytes = 2 * x.numel() * 4
+    timing = {}
+    for name, fn, plain, arg, lib, variants in (
+            ("relayout_fwd", pk.relayout_fwd, pk.relayout_fwd_plain, x,
+             lambda: x.reshape(T, 16, 128).clone(), pk.FWD_VARIANTS),
+            ("relayout_inv", pk.relayout_inv, pk.relayout_inv_plain, y,
+             lambda: y.reshape(T, 64, 32).clone(), pk.INV_VARIANTS)):
+        per = {}
+        for v in variants:
+            per[v] = dict(
+                ms=kernel_ms(lambda: fn(arg, v), f"{name}_kernel<{v}>"),
+                plain_ms=events_ms(lambda: plain(arg, v)))
+        timing[name] = dict(
+            ms=max(r["ms"] for r in per.values()),
+            plain_ms=max(r["plain_ms"] for r in per.values()),
+            library_ms=events_ms(lib), bound=bound_ms(relayout_bytes, 0),
+            variants={str(v): r for v, r in per.items()})
+    n_unique = int(torch.unique(idx).numel())
+    n_out = ROWDMA_READS // pk.READS
+    row_fixed = ROWDMA_READS * 4 + n_out * pk.ROW * 4     # indices, output
+    timing["row_accumulate"] = dict(
+        ms=kernel_ms(lambda: pk.row_accumulate(src, idx),
+                     "row_accumulate_kernel"),
+        plain_ms=events_ms(lambda: pk.row_accumulate_plain(src, idx), 3, 1),
+        library_ms=events_ms(lambda: torch.nn.functional.embedding_bag(
+            bag_ix, src, mode="sum")),
+        # each distinct row read once (the card's least), and every
+        # indexed row from device memory (src exceeds the L2)
+        bound=bound_ms(n_unique * pk.ROW * 4 + row_fixed, n_out * pk.READS
+                       * pk.ROW),
+        row_stream_bound_ms=bound_ms(ROWDMA_READS * pk.ROW * 4 + row_fixed,
+                                     0)[0],
+        distinct_rows=n_unique)
+    v, p, k, E_c, Rp = (planar_in[key] for key in ("v", "p", "k", "E_c",
+                                                    "Rp"))
+    kE = k * E_c
+    out = torch.zeros_like(v)
+    lanes = out[:, :, :kE].view(PROBE_B, 3, k, E_c)
+    timing["planar_write"] = dict(
+        ms=kernel_ms(lambda: pk.planar_write(v, k, E_c),
+                     "planar_write_kernel"),
+        plain_ms=events_ms(lambda: pk.planar_write_plain(v, k, E_c)),
+        library_ms=events_ms(lambda: v[:, :, :kE].reshape(
+            PROBE_B, 3, k, E_c).permute(1, 2, 0, 3).contiguous()),
+        bound=bound_ms(2 * PROBE_B * 3 * kE * 4, 0))
+    timing["planar_read"] = dict(
+        ms=kernel_ms(lambda: pk.planar_read(p), "planar_read_kernel"),
+        plain_ms=events_ms(lambda: pk.planar_read_plain(p)),
+        library_ms=events_ms(lambda: lanes.copy_(p.permute(2, 0, 1, 3))),
+        bound=bound_ms(PROBE_B * 3 * (kE + Rp) * 4, 0))
+    must_equal("planar_read library call", out, pk.planar_read(p))
+    # the probe's round trip at PROBE_B: device ms per iteration
+    trip = total_device_ms(
+        lambda: pk.planar_read(pk.planar_write(v, k, E_c)) * 0.5 + v * 0.5,
+        reps)
+    log(f"planar round trip at B={PROBE_B}: {trip:.4f} ms device per "
+        f"iteration (two kernels and the update; torch.profiler); the probe "
+        f"at B=2688: {planar['ms']} ms host clock for 5 and 45 iterations")
+    log(f"row probe: gather {rowdma['gather_ms']:.4f} ms, row kernel "
+        f"{rowdma['kernel_ms']:.4f} ms per {ROWDMA_READS} reads (host "
+        f"clock); {n_unique} distinct rows")
+
+    rows_out = []
+    for K in tt.PROBE_KERNELS:
+        t = timing[K.name]
+        b_ms, b_by = t.pop("bound")
+        rows_out.append(dict(
+            name=K.name, route="cuda", source=f"tpufem_torch/csrc/{K.source}",
+            replaces=K.replaces, launches=launches[K.name],
+            path="the three probes' mains at their defaults",
+            max_abs_err=0.0, ms=t.pop("ms"),
+            plain_ms=t.pop("plain_ms"), bound_ms=b_ms, bound_by=b_by,
+            library_ms=t.pop("library_ms"), **t))
+        r = rows_out[-1]
+        log(f"time {K.name}: {r['ms']:.4f} ms device per launch "
+            f"(torch.profiler); bound {b_ms:.4f} ms by {b_by} "
+            f"({b_ms / r['ms']:.1%} of it); plain {r['plain_ms']:.4f} ms; "
+            f"library {r['library_ms']:.4f} ms"
+            + (f"; variants {r['variants']}" if "variants" in r else "")
+            + (f"; every indexed row from memory "
+               f"{r['row_stream_bound_ms']:.4f} ms"
+               if "row_stream_bound_ms" in r else ""))
+    return rows_out
 
 
 
@@ -1118,11 +1367,12 @@ def main() -> None:
                     help="box_tet10(n, n, n): 6 n^3 c3d10 elements")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--phases", default="packed,static,staged",
-                    help="comma-separated subset of packed, static, staged")
+    ap.add_argument("--phases", default="packed,static,staged,probes",
+                    help="comma-separated subset of packed, static, staged, "
+                    "probes")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
-    if not phases <= {"packed", "static", "staged"}:
+    if not phases <= {"packed", "static", "staged", "probes"}:
         ap.error(f"unknown phases {phases}")
 
     if not torch.cuda.is_available():
@@ -1162,12 +1412,20 @@ def main() -> None:
         log(f"phase static: {time.perf_counter() - t0:.1f} s")
     if "staged" in phases:
         t0 = time.perf_counter()
-        staged_rows, staged_launches = staged_phase(args, dev, ctx, tip)
+        staged_rows, staged_launches, k1_other = staged_phase(args, dev, ctx,
+                                                              tip)
         for r in rows:
             if r["name"] in staged_launches:
                 r["staged_launches"] = staged_launches[r["name"]]
+            if r["name"] == "fused_yc":
+                r["other_solids"] = k1_other
         rows += staged_rows
+        torch.cuda.empty_cache()
         log(f"phase staged: {time.perf_counter() - t0:.1f} s")
+    if "probes" in phases:
+        t0 = time.perf_counter()
+        rows += probes_phase(args, dev)
+        log(f"phase probes: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -322,3 +322,62 @@ def test_staged_block_solve_on_card_matches_cpu(cuda_device):
     (ug, sg, ig), (uc, sc, ic) = res["cuda"], res["cpu"]
     assert sg == sc == 1 and abs(ig - ic) <= max(1, 0.03 * ic)
     assert float((ug - uc).abs().max() / uc.abs().max()) <= 1e-8
+
+
+@pytest.mark.cuda
+def test_probe_kernels_bitwise_vs_plain(cuda_device):
+    """The five probe kernels against their plain versions: every relayout
+    variant on a ragged tile count, row_accumulate with out-of-order and
+    repeated indices, the planar write and read for three layouts (the
+    padding lanes of the read zeroed)."""
+    from tpufem_torch.ops import probe_kernels as pk
+
+    rng = np.random.default_rng(12)
+    f32 = dict(dtype=torch.float32, device=cuda_device)
+    x = torch.as_tensor(rng.standard_normal((37, 64, 32)), **f32)
+    for v in pk.FWD_VARIANTS:
+        launches = pk.RELAYOUT_FWD.launches
+        y = pk.relayout_fwd(x, v)
+        assert pk.RELAYOUT_FWD.launches == launches + 1
+        assert torch.equal(y, pk.relayout_fwd_plain(x, v))
+        assert torch.equal(y, x.reshape(37, 16, 128))
+    for v in pk.INV_VARIANTS:
+        launches = pk.RELAYOUT_INV.launches
+        got = pk.relayout_inv(x.reshape(37, 16, 128), v)
+        assert pk.RELAYOUT_INV.launches == launches + 1
+        assert torch.equal(got, pk.relayout_inv_plain(x.reshape(37, 16, 128),
+                                                      v))
+        assert torch.equal(got, x)
+    src = torch.as_tensor(rng.standard_normal((3000, 384)), **f32)
+    idx = torch.as_tensor(rng.integers(0, 3000, 128 * 19).astype(np.int32),
+                          device=cuda_device)
+    launches = pk.ROW_ACCUMULATE.launches
+    got = pk.row_accumulate(src, idx)
+    assert pk.ROW_ACCUMULATE.launches == launches + 1
+    assert torch.equal(got, pk.row_accumulate_plain(src, idx))
+    for k, E_c, B in ((10, 32, 77), (4, 32, 9), (10, 16, 50)):
+        Rp = pk.planar_lanes(k, E_c)
+        v = torch.as_tensor(rng.standard_normal((B, 3, Rp)), **f32)
+        launches = (pk.PLANAR_WRITE.launches, pk.PLANAR_READ.launches)
+        p = pk.planar_write(v, k, E_c)
+        back = pk.planar_read(p)
+        assert (pk.PLANAR_WRITE.launches, pk.PLANAR_READ.launches) == (
+            launches[0] + 1, launches[1] + 1)
+        assert torch.equal(p, pk.planar_write_plain(v, k, E_c))
+        assert torch.equal(back, pk.planar_read_plain(p))
+        assert torch.equal(back[:, :, :k * E_c], v[:, :, :k * E_c])
+        assert not back[:, :, k * E_c:].any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_probe_mains_on_card(cuda_device):
+    """The three probes at small size on the card: every relayout candidate
+    right, the row kernel equal to its plain version, the planar errors 0."""
+    from tpufem_torch.ops import probe_planar_io, probe_reshape, probe_rowdma
+
+    assert all(probe_reshape.main().values())
+    assert probe_rowdma.main(5000, 128 * 64)["kernel_ms"] > 0
+    res = probe_planar_io.main()
+    assert res["write_err"] == res["read_err"] == 0.0
+    assert set(res["ms"]) == {5, 45}

@@ -137,6 +137,8 @@ _ALL_MODULES = [
     "tpufem_torch.ops.scatter", "tpufem_torch.ops.operator",
     "tpufem_torch.ops.cluster_kernels", "tpufem_torch.ops.clustered",
     "tpufem_torch.solvers.static", "tpufem_torch.ops.probe_fused",
+    "tpufem_torch.ops.probe_kernels", "tpufem_torch.ops.probe_reshape",
+    "tpufem_torch.ops.probe_rowdma", "tpufem_torch.ops.probe_planar_io",
 ]
 
 

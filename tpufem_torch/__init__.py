@@ -1,6 +1,7 @@
 """tpufem_torch: the PyTorch/CUDA port of tpufem for NVIDIA Hopper (H100).
 
-Three paths are ported, each on hand-written CUDA kernels:
+Three paths and three probes are ported, each on hand-written CUDA
+kernels:
 
 * the refined packed solve: box meshes, the packed plan, the matrix-free
   partial-assembly operator (kernels fused_yc, combine, compress_gather),
@@ -14,7 +15,12 @@ Three paths are ported, each on hand-written CUDA kernels:
 * the assembled-stiffness static solve: element stiffness (kernel
   stiffness_fused for k <= 10 types), the scatter-plan and the clustered
   operators (kernels cluster_expand, cluster_compress), Jacobi PCG through
-  static_structure_solver; with mass and stress recovery.
+  static_structure_solver; with mass and stress recovery;
+* the probes of tpufem's scripts/: the [64, 32] <-> [16, 128] relayouts
+  (ops.probe_reshape; kernels relayout_fwd, relayout_inv), indexed row
+  reads against a gather (ops.probe_rowdma; kernel row_accumulate) and
+  the planar element layout's write and read (ops.probe_planar_io;
+  kernels planar_write, planar_read).
 
 The JAX package ``tpufem`` stays the reference; nothing here imports it.
 Entry points (the plans' and operators' build functions, PackedSystem,
@@ -44,6 +50,10 @@ from .ops.fused_kernels import FUSED_YC, fused_yc  # noqa: E402
 from .ops.operator import (MatrixFreeOperator, block_operator,  # noqa: E402
                            diagonal_preconditioner, nodal_forces)
 from .ops import probe_fused  # noqa: E402
+from .ops.probe_kernels import (PLANAR_READ, PLANAR_WRITE,  # noqa: E402
+                                RELAYOUT_FWD, RELAYOUT_INV, ROW_ACCUMULATE,
+                                planar_read, planar_write, relayout_fwd,
+                                relayout_inv, row_accumulate)
 from .ops.packed import (BlockJacobi, PackedConstraints,  # noqa: E402
                          PackedPartialOperator, PackedPlan, PackedSystem,
                          block_apply, invert_block_planes)
@@ -67,22 +77,29 @@ STATIC_KERNELS = (STIFFNESS_FUSED, CLUSTER_EXPAND, CLUSTER_COMPRESS)
 # the CUDA kernels the staged and planar packed pipelines add (the staged
 # apply also runs COMPRESS_GATHER and COMBINE)
 STAGED_KERNELS = (EXPAND, EXPAND_PLANAR, COMPRESS_PLANAR)
+# the CUDA kernels of the three probes
+PROBE_KERNELS = (RELAYOUT_FWD, RELAYOUT_INV, ROW_ACCUMULATE, PLANAR_WRITE,
+                 PLANAR_READ)
 # every CUDA kernel of the package
-KERNELS = PACKED_KERNELS + STATIC_KERNELS + STAGED_KERNELS
+KERNELS = PACKED_KERNELS + STATIC_KERNELS + STAGED_KERNELS + PROBE_KERNELS
 
 __all__ = [
     "BlockJacobi", "CLUSTER_COMPRESS", "CLUSTER_EXPAND", "COMBINE",
     "COMPRESS_GATHER", "COMPRESS_PLANAR", "ClusterPlan", "ClusteredOperator",
     "CombinePlan", "Constraints", "EXPAND", "EXPAND_PLANAR", "ElementTable",
     "F64Operator", "FUSED_YC", "KERNELS", "MatrixFreeOperator",
-    "PACKED_KERNELS", "PackedConstraints", "PackedPartialOperator",
-    "PackedPlan", "PackedSystem", "RefineInfo", "RefinedSystem",
-    "STAGED_KERNELS", "STATIC_KERNELS", "STIFFNESS_FUSED", "ScatterPlan",
+    "PACKED_KERNELS", "PLANAR_READ", "PLANAR_WRITE", "PROBE_KERNELS",
+    "PackedConstraints", "PackedPartialOperator", "PackedPlan",
+    "PackedSystem", "RELAYOUT_FWD", "RELAYOUT_INV", "ROW_ACCUMULATE",
+    "RefineInfo", "RefinedSystem", "STAGED_KERNELS", "STATIC_KERNELS",
+    "STIFFNESS_FUSED", "ScatterPlan",
     "SolveInfo", "StaticModel", "block_apply", "block_operator",
     "build_static_model", "cg", "cluster_compress", "cluster_expand",
     "cluster_spmv", "combine", "compress_gather", "compress_planar", "cuda",
     "diagonal_preconditioner", "elasticity_matrix", "element_table",
     "expand", "expand_planar", "fused_yc", "invert_block_planes",
-    "lame_parameters", "meshgen", "nodal_forces", "probe_fused",
-    "resolve_device", "solid", "static_structure_solver", "stiffness_fused",
+    "lame_parameters", "meshgen", "nodal_forces", "planar_read",
+    "planar_write", "probe_fused", "relayout_fwd", "relayout_inv",
+    "resolve_device", "row_accumulate", "solid", "static_structure_solver",
+    "stiffness_fused",
 ]
