@@ -13,7 +13,9 @@ Phases (any failure exits non-zero, and the last line is then not
 printed):
   1. device: torch's device name and nvidia-smi's name and power limit;
   2. build: every CUDA kernel from tpufem_torch/csrc with nvcc (sm_90a),
-     one nvcc per source, all at once;
+     one nvcc per source, all at once; each instantiation's demangled name,
+     registers, shared memory and spills (-Xptxas -v); fails if an f32
+     instantiation of fused_yc or cluster_compress spills;
   The refined packed solve:
   3. setup: mesh, packed plan and the f32 operator's geometry;
   4. parity: each kernel against its plain PyTorch version on the mesh's
@@ -30,8 +32,12 @@ printed):
      launches per apply; the f32 kernel operator against the independent
      f64 operator on the whole mesh, and the f64 operator's time;
   7. torch.profiler: a window of 100 PCG iterations (device time per
-     iteration by kernel, and the device's busy share of the wall time),
-     then each kernel's device time per sweep, the "ms" of the JSON line.
+     iteration by kernel, and the device's busy share of the wall time,
+     the median host clock of five unprofiled windows),
+     then each kernel's device time per sweep, the "ms" of the JSON line;
+     K1's sweep against the K4 expand + K3 compress_gather sweeps on the
+     same tables, six profiler windows each taken in turns (min, median,
+     max; K1's "ms" is the median), and K1's blocks per SM.
   The assembled-stiffness static solve (the same mesh and load: E =
   200e9, nu = 0.3, z = 0 fixed, -1e3 in z on the top face):
   8a. stiffness_fused (K6) against its plain version, bitwise, in f32 and
@@ -43,15 +49,18 @@ printed):
       against the independent F64Operator, ClusteredOperator (apply and
       diagonal) against MatrixFreeOperator;
   8d. device time (torch.profiler) of K6, K7a, K7b and of both operators'
-      applies, f32 and f64, beside their bounds; the plain versions' and
-      the library yardsticks' times (torch.gather for K7a, scatter_add_
-      for K7b) by CUDA events;
+      applies, f32 and f64, beside their bounds; K7a and K7b in turns with
+      their library yardsticks (torch.gather, scatter_add_: library,
+      kernel, kernel, library), six profiler windows each (min, median,
+      max; "ms" and "library_ms" are the medians); the plain versions'
+      times by CUDA events;
   8e. main path, every launch count set to 0 first:
       static_structure_solver(operator="clustered", f64, Jacobi, tol
       1e-6 ||b||); fails unless the status is CONVERGED, the F64Operator
       true relative residual is <= 1e-6, the tip deflection is finite and
       negative, and K6, K7a and K7b all launched;
-  8f. torch.profiler over a window of 20 of its PCG iterations.
+  8f. torch.profiler over a window of 20 of its PCG iterations (the
+      median host clock of five unprofiled windows beside it).
   The staged packed pipeline (same mesh, plan and load; f32 operator with
   fuse=""):
   9a. expand, expand_planar and compress_planar (K4, K5a, K5b) against
@@ -91,7 +100,8 @@ printed):
        call's ms (CUDA events): clone() of the reshaped view, embedding_bag,
        the permuted view's contiguous(), copy_ into a zeroed output.
 It then prints {"kernels": [...]} (the static kernels' numbers are
-float64, the main path's type, with the float32 ones beside them), the
+float64, the main path's type, with the float32 ones beside them; K1,
+K7a and K7b add ms_min and ms_max), the
 card's name and power limit, and, last, {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -147,13 +157,93 @@ def event_times(fn, reps: int, warmup: int = 2, before=None):
     return [a.elapsed_time(b) for a, b in evs]
 
 
-def ptxas_digest(kernel) -> str:
+def _demangle(names):
+    """C++ names demangled by the CUDA toolkit's cu++filt (or c++filt);
+    the names as they are where neither is found."""
+    import os
+    import shutil
+
+    from tpufem_torch.ops import cuda
+    tools = [os.path.join(os.path.dirname(cuda.nvcc_path()), "cu++filt"),
+             shutil.which("c++filt") or ""]
+    for tool in tools:
+        if names and os.path.exists(tool):
+            res = subprocess.run([tool], input="\n".join(names),
+                                 capture_output=True, text=True, timeout=60)
+            out = res.stdout.splitlines()
+            if res.returncode == 0 and len(out) == len(names):
+                return out
+    return list(names)
+
+
+def ptxas_entries(kernel):
+    """[{name, registers, smem, spill_stores, spill_loads, stack}] of each
+    kernel instantiation in the source's `-Xptxas -v` build log, names
+    demangled and cut before their arguments; None without a log."""
+    import re
     try:
         with open(kernel.log_path()) as f:
-            lines = [ln.strip() for ln in f if "registers" in ln]
+            lines = f.read().splitlines()
     except OSError:
+        return None
+    entries, props, cur, prop = [], {}, None, None
+    for ln in lines:
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = dict(mangled=m.group(1), registers=None, smem=0, stack=0)
+            entries.append(cur)
+            continue
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            prop = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and prop is not None:
+            props[prop] = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+            st = re.search(r"(\d+) bytes cumulative stack size", ln)
+            cur["stack"] = int(st.group(1)) if st else 0
+    names = _demangle([e["mangled"] for e in entries])
+    for e, name in zip(entries, names):
+        frame, stores, loads = props.get(e["mangled"], (0, 0, 0))
+        e.update(name=_strip_params(name), spill_stores=stores,
+                 spill_loads=loads, stack=max(e["stack"], frame))
+        del e["mangled"]
+    # a source's library holds its sibling kernels too: keep this one's
+    own = [e for e in entries
+           if re.search(rf"::{kernel.name}_kernel\b", e["name"])]
+    return own or entries
+
+
+def _strip_params(name: str) -> str:
+    """A demangled function name without its parameter list (template
+    arguments may hold parentheses, as in cu++filt's "(int)10")."""
+    name = name.strip()
+    if not name.endswith(")"):
+        return name
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            return name[:i]
+    return name
+
+
+def ptxas_digest(kernel) -> str:
+    entries = ptxas_entries(kernel)
+    if entries is None:
         return "(no build log)"
-    return "; ".join(ln.split("ptxas info    : ")[-1] for ln in lines)
+    return "".join(
+        f"\n    {e['name']}: {e['registers']} registers, {e['smem']} B "
+        f"static shared memory, spills {e['spill_stores']} B stored / "
+        f"{e['spill_loads']} B loaded, stack {e['stack']} B"
+        for e in entries)
 
 
 def flops_per_element(dN: np.ndarray) -> int:
@@ -418,11 +508,8 @@ def packed_phase(args, dev):
         system.solve_chunked_packed(bX, tol=0.0, max_iter=iters, every=iters)
 
     pcg()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pcg()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    walls = host_windows(pcg)
+    wall_ms = statistics.median(walls)
     prof = device_times(pcg, 1)
     if not prof:
         fail("torch.profiler recorded no device time")
@@ -431,15 +518,16 @@ def packed_phase(args, dev):
           for K in tt.PACKED_KERNELS}
     by["other"] = dev_ms - sum(by.values())
     log(f"profile: {iters} PCG iterations, {wall_ms / iters:.4f} ms per "
-        f"iteration (host clock, unprofiled); device {dev_ms / iters:.4f} ms "
-        f"per iteration, busy {dev_ms / wall_ms:.1%}; device ms per "
-        f"iteration by kernel "
+        f"iteration (host clock, unprofiled, median of {len(walls)} windows;"
+        f" {fmt_spread(spread([w / iters for w in walls]))}); device "
+        f"{dev_ms / iters:.4f} ms per iteration, busy {dev_ms / wall_ms:.1%};"
+        f" device ms per iteration by kernel "
         f"{ {k: round(v / iters, 4) for k, v in by.items()} }")
     for name, ms, count in prof[:8]:
         log(f"  {ms / iters:.4f} ms/it  {count / iters:.1f} launches/it  "
             f"{name[:90]}")
     kernel_ms = {}
-    for K in tt.PACKED_KERNELS:
+    for K in tt.PACKED_KERNELS[1:]:        # K1: in turns with K4 + K3 below
         rows_k = device_times(sweep(K.name), args.reps)
         kernel_ms[K.name] = sum(r[1] for r in rows_k
                                 if f"{K.name}_kernel" in r[0]) / args.reps
@@ -449,6 +537,31 @@ def packed_phase(args, dev):
         log(f"device time {K.name}: {kernel_ms[K.name]:.4f} ms per sweep "
             f"(torch.profiler, {args.reps} sweeps); the bound is {share:.1%}"
             f" of it")
+
+    # K1's sweep against K4 expand + K3 compress_gather (its gathers and
+    # its sum as separate kernels) on the same tables, profiler windows in
+    # turns; K1's "ms" is the median of its windows
+    turns = windows_in_turns({
+        "fused_yc": (sweep("fused_yc"), "fused_yc_kernel"),
+        "expand": (lambda: op.expand_stage(X), "tpufem::expand_kernel<"),
+        "compress_gather": (sweep("compress_gather"),
+                            "compress_gather_kernel")}, args.reps)
+    k1 = spread(turns["fused_yc"])
+    k43 = spread([a + b for a, b in zip(turns["expand"],
+                                        turns["compress_gather"])])
+    kernel_ms["fused_yc"] = k1[1]
+    Wp = max(c.shape[1] for c in plan.cinc)
+    occ = {str(dt)[6:]: fk.occupancy(dt, 10, 4, Wp, m.lanes,
+                                     len(m.cv_widths[0]))
+           for dt in (torch.float32, torch.float64)}
+    log(f"K1 against K4 + K3, {len(turns['fused_yc'])} torch.profiler "
+        f"windows of {args.reps} sweeps each, in turns: fused_yc "
+        f"{fmt_spread(k1)} ms per sweep; expand + compress_gather "
+        f"{fmt_spread(k43)} (expand {fmt_spread(spread(turns['expand']))}, "
+        f"compress_gather {fmt_spread(spread(turns['compress_gather']))}); "
+        f"median ratio {k1[1] / k43[1]:.3f}; bound {times['fused_yc'][2]:.4f}"
+        f" ms ({times['fused_yc'][2] / k1[1]:.1%} of the median); occupancy "
+        f"{occ} blocks of 128 threads per SM (Wp {Wp})")
 
     # library yardsticks: one index_add_ over index tables built once
     lib = library_tables(plan)
@@ -486,6 +599,10 @@ def packed_phase(args, dev):
             bound_by=b_by, library_ms=library_ms[K.name], sweep_ms=sweep_ms,
             launches_per_apply=per_apply[K.name],
             f64_max_rel_err=parity[K.name][1]))
+        if K.name == "fused_yc":
+            rows[-1].update(ms_min=k1[0], ms_max=k1[2],
+                            expand_plus_compress_ms=list(k43),
+                            blocks_per_sm=occ)
     ctx = dict(coords=coords, conn=conn, plan=plan, op=op)
     return rows, tip, ctx
 
@@ -535,6 +652,45 @@ def kernel_device_ms(fn, reps: int, key: str, tries: int = 3) -> float:
 
 def total_device_ms(fn, reps: int) -> float:
     return sum(r[1] for r in device_times(fn, reps)) / reps
+
+
+def host_windows(fn, windows: int = 5):
+    """Host-clock ms of each of `windows` runs of fn, each ending in a
+    synchronize (the host clock of one window varies between windows of
+    one call, so it is given as a spread)."""
+    out = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def windows_in_turns(fns, reps: int, rounds: int = 3):
+    """{label: [device ms per call in each window]} of fns {label: (fn,
+    key)}: 2 * rounds torch.profiler windows of `reps` calls each, taken
+    in turns, the labels in order and then reversed (for two: a, b, b, a),
+    so that each comparison lies inside one call.  key None counts every
+    kernel of the window (a library call may launch more than one)."""
+    labels = list(fns)
+    out = {lab: [] for lab in labels}
+    for _ in range(rounds):
+        for lab in labels + labels[::-1]:
+            fn, key = fns[lab]
+            out[lab].append(kernel_device_ms(fn, reps, key) if key
+                            else total_device_ms(fn, reps))
+    return out
+
+
+def spread(values):
+    """(min, median, max)."""
+    return min(values), statistics.median(values), max(values)
+
+
+def fmt_spread(t) -> str:
+    return f"min {t[0]:.4f}, median {t[1]:.4f}, max {t[2]:.4f}"
 
 
 def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -663,8 +819,8 @@ def static_phase(args, dev, tip_packed):
             fail(f"{what}: max rel {rel:.3e} > 1e-12")
     del F_mf, F_ref, F_cl
 
-    # 8d. times (torch.profiler device time; plain versions and the
-    # library yardsticks by CUDA events), both dtypes
+    # 8d. times (torch.profiler device time, K7a/K7b and their library
+    # yardsticks in turns; plain versions by CUDA events), both dtypes
     reps = max(args.reps // 4, 3)
     lcl = lc.long().unsqueeze(-1).expand(-1, -1, 3)
     ops_ms = {}
@@ -678,26 +834,40 @@ def static_phase(args, dev, tip_packed):
         log(f"  stiffness_fused {str(dt)[6:]} per call by CUDA events, 10 "
             f"calls: min {min(ev6):.4f}, median "
             f"{statistics.median(ev6):.4f}, max {max(ev6):.4f} ms")
-        msa = kernel_device_ms(lambda: ck.cluster_expand(lc, Uc), reps,
-                               "cluster_expand_kernel")
-        msb = kernel_device_ms(lambda: ck.cluster_compress(lc, Fe, L), reps,
-                               "cluster_compress_kernel")
+        # K7a and K7b in turns with their library calls, >= 5 profiler
+        # windows each: "ms" and "library_ms" are the medians
+        ta = windows_in_turns({
+            "library": (lambda: torch.gather(Uc, 1, lcl), None),
+            "kernel": (lambda: ck.cluster_expand(lc, Uc),
+                       "cluster_expand_kernel")}, reps)
+        tb = windows_in_turns({
+            "library": (lambda: Fe.new_zeros((B, L, 3)).scatter_add_(
+                1, lcl, Fe), None),
+            "kernel": (lambda: ck.cluster_compress(lc, Fe, L),
+                       "cluster_compress_kernel")}, reps)
         res["stiffness_fused"][dt].update(
             ms=ms6, library_ms=None, bound=bound_ms_dt(
                 M * 10 * 4 + N * 3 * item + M * 900 * item,
                 M * stiffness_flops(tt.element_table("c3d10").dN), dt))
+        for name, tw, lib_name, plain, plain_reps, plain_warmup in (
+                ("cluster_expand", ta, "torch.gather",
+                 lambda: ck.cluster_expand_plain(lc, Uc), 3, 1),
+                ("cluster_compress", tb, "scatter_add_",
+                 lambda: ck.cluster_compress_plain(lc, Fe, L), 1, 0)):
+            kern, libt = spread(tw["kernel"]), spread(tw["library"])
+            res[name][dt].update(
+                ms=kern[1], ms_min=kern[0], ms_max=kern[2],
+                library_ms=libt[1], library_min=libt[0],
+                library_max=libt[2],
+                plain_ms=time_ms(plain, plain_reps, warmup=plain_warmup))
+            log(f"  {name} {str(dt)[6:]} in turns with {lib_name}, "
+                f"{len(tw['kernel'])} torch.profiler windows of {reps} calls "
+                f"each: kernel {fmt_spread(kern)} ms, library "
+                f"{fmt_spread(libt)} ms")
         res["cluster_expand"][dt].update(
-            ms=msa, plain_ms=time_ms(lambda: ck.cluster_expand_plain(lc, Uc),
-                                     3, warmup=1),
-            library_ms=time_ms(lambda: torch.gather(Uc, 1, lcl), reps),
             bound=bound_ms_dt(B * R * 4 + B * L * 3 * item
                               + B * R * 3 * item, 0, dt))
         res["cluster_compress"][dt].update(
-            ms=msb, plain_ms=time_ms(
-                lambda: ck.cluster_compress_plain(lc, Fe, L), 1, warmup=0),
-            library_ms=time_ms(
-                lambda: Fe.new_zeros((B, L, 3)).scatter_add_(1, lcl, Fe),
-                reps),
             bound=bound_ms_dt(B * R * 4 + B * R * 3 * item
                               + B * L * 3 * item, B * R * 3, dt))
         ud = u.to(dt)
@@ -792,16 +962,15 @@ def static_phase(args, dev, tip_packed):
               max_iter=iters_w)
 
     pcg()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pcg()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    walls = host_windows(pcg)
+    wall_ms = statistics.median(walls)
     prof = device_times(pcg, 1)
     dev_ms = sum(r[1] for r in prof)
     log(f"profile (static): {iters_w} PCG iterations, "
         f"{wall_ms / iters_w:.4f} ms per iteration (host clock, "
-        f"unprofiled); device {dev_ms / iters_w:.4f} ms per iteration, busy "
+        f"unprofiled, median of {len(walls)} windows; "
+        f"{fmt_spread(spread([w / iters_w for w in walls]))}); device "
+        f"{dev_ms / iters_w:.4f} ms per iteration, busy "
         f"{dev_ms / wall_ms:.1%}")
     for name, ms, count in prof[:10]:
         log(f"  {ms / iters_w:.4f} ms/it  {count / iters_w:.1f} launches/it  "
@@ -825,6 +994,10 @@ def static_phase(args, dev, tip_packed):
             f32=dict(ms=r32["ms"], plain_ms=r32["plain_ms"],
                      bound_ms=r32["bound"][0], library_ms=r32["library_ms"],
                      max_abs_err=r32["err"])))
+        for key in ("ms_min", "ms_max", "library_min", "library_max"):
+            if key in r64:
+                rows[-1][key] = r64[key]
+                rows[-1]["f32"][key] = r32[key]
     log(f"static applies (device ms per apply; bound = streaming K): "
         f"{ {str(dt)[6:]: [round(x, 4) for x in v] for dt, v in ops_ms.items()} }")
     return rows
@@ -1397,7 +1570,12 @@ def main() -> None:
     log(f"build: {time.perf_counter() - t0:.2f} s for {built or 'none'} "
         f"(nvcc {' '.join(cuda.NVCC_FLAGS)})")
     for K in tt.KERNELS:
-        log(f"  ptxas {K.name}: {ptxas_digest(K)}")
+        log(f"  ptxas {K.name}:{ptxas_digest(K)}")
+    # the redesigned kernels' f32 instantiations do not spill
+    for K in (tt.FUSED_YC, tt.CLUSTER_COMPRESS):
+        for e in ptxas_entries(K) or []:
+            if "<float" in e["name"] and e["spill_stores"] > 0:
+                fail(f"{e['name']} spills {e['spill_stores']} bytes")
 
     rows, tip, ctx = [], None, None
     if "packed" in phases:

@@ -5,7 +5,11 @@
 * the plain cluster_expand is bitwise equal to tpufem's Pallas kernel in
   interpret mode; the plain cluster_compress sums each slot in lane order
   while tpufem's one-hot dot sums in its own order, so the two agree to
-  <= 1e-12 relative in f64;
+  <= 1e-12 relative in f64 (bitwise on integer-valued lanes, whose sums
+  are exact in any order);
+* slot_lists, the compress kernel's index arithmetic, lists every (slot,
+  lane) pair once, lanes ascending, and a compress through its lists is
+  bitwise the plain cluster_compress;
 * ClusteredOperator (apply and diagonal) on tpufem's K carried across
   agrees with tpufem's ClusteredOperator and with the port's
   MatrixFreeOperator to <= 1e-12 relative in f64 (max-norm).
@@ -77,7 +81,11 @@ def kernel_case():
     rng = np.random.default_rng(12)
     Uc = rng.standard_normal((B, 128, 3))
     Fe = rng.standard_normal((B, lc.shape[1], 3))
-    return dict(lc=lc, Uc=Uc, Fe=Fe,
+    Fe_int = rng.integers(-64, 64, Fe.shape).astype(np.float64)
+    return dict(lc=lc, Uc=Uc, Fe=Fe, Fe_int=Fe_int,
+                Yc_int=np.asarray(jpk.cluster_compress(jnp.asarray(lc),
+                                                       jnp.asarray(Fe_int),
+                                                       128, interpret=True)),
                 ue=np.asarray(jpk.cluster_expand(jnp.asarray(lc),
                                                  jnp.asarray(Uc),
                                                  interpret=True)),
@@ -105,6 +113,67 @@ def test_cluster_compress_plain(kernel_case):
         for r in range(lc.shape[1]):
             want[b, lc[b, r]] += Fe[b, r]
     assert np.array_equal(got.numpy(), want)
+
+
+def _list_case(kernel_case, name):
+    """(lconn, L) for the list tests: the plan's, and edge cases."""
+    rng = np.random.default_rng(14)
+    if name == "plan":
+        return kernel_case["lc"], 128
+    if name == "one-slot":                      # every lane in one slot
+        return np.full((2, 320), 7, np.int32), 128
+    if name == "ragged":                        # R % 32 != 0, L < 128
+        return rng.integers(0, 5, (3, 45)).astype(np.int32), 5
+    return (rng.integers(0, 40, (2, 70)) * 3).astype(np.int32), 128
+
+
+def _compress_through_lists(lconn, Fe, L):
+    """Slot sums in the kernel's order: each slot's list from 0."""
+    start, lanes = tck.slot_lists(lconn, L)
+    B, R, nd = Fe.shape
+    out = Fe.new_zeros((B, L, nd))
+    cnt = start[:, 1:] - start[:, :-1]
+    bidx = torch.arange(B)[:, None]
+    for j in range(int(cnt.max())):
+        r = lanes.gather(1, (start[:, :-1] + j).clamp(max=R - 1))
+        out = torch.where((cnt > j)[..., None], out + Fe[bidx, r], out)
+    return out
+
+
+LIST_CASES = ["plan", "one-slot", "ragged", "empty-slots"]
+
+
+@pytest.mark.parametrize("name", LIST_CASES)
+def test_slot_lists(kernel_case, name):
+    lc, L = _list_case(kernel_case, name)
+    start, lanes = tck.slot_lists(torch.from_numpy(lc), L)
+    B, R = lc.shape
+    counts = np.stack([np.bincount(row, minlength=L) for row in lc])
+    assert np.array_equal(start[:, 0].numpy(), np.zeros(B))
+    assert np.array_equal(np.diff(start.numpy(), axis=1), counts)
+    assert np.array_equal(np.sort(lanes.numpy(), axis=1),
+                          np.broadcast_to(np.arange(R), (B, R)))
+    for b in range(B):
+        for l in range(L):
+            seg = lanes[b, start[b, l]:start[b, l + 1]].numpy()
+            assert np.array_equal(seg, np.flatnonzero(lc[b] == l))
+
+
+@pytest.mark.parametrize("name", LIST_CASES)
+def test_compress_through_slot_lists(kernel_case, name):
+    lc, L = _list_case(kernel_case, name)
+    lt = torch.from_numpy(lc)
+    Fe = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (*lc.shape, 3)))
+    got = _compress_through_lists(lt, Fe, L)
+    assert torch.equal(got, tck.cluster_compress_plain(lt, Fe, L))
+    if name == "plan":
+        kc = kernel_case
+        Fe_int = torch.from_numpy(kc["Fe_int"])
+        assert np.array_equal(_compress_through_lists(lt, Fe_int, L).numpy(),
+                              kc["Yc_int"])
+        assert _rel(_compress_through_lists(
+            lt, torch.from_numpy(kc["Fe"]), L), kc["Yc"]) <= 1e-12
 
 
 def test_cluster_spmv(kernel_case):

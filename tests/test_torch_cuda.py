@@ -155,6 +155,94 @@ def test_cluster_kernels_bitwise_vs_plain(cuda_device, dt):
     torch.cuda.synchronize()
 
 
+# (B, R, L, lconn maker): the compress kernel's edge cases; "wide" has more
+# lanes than the first design's 48 KB of shared memory took in f64
+K7B_CASES = {
+    "one-slot": (6, 320, 128, lambda rng, B, R, L: np.full((B, R), 7)),
+    "empty-slots": (9, 320, 128,
+                    lambda rng, B, R, L: rng.integers(0, 30, (B, R)) * 4),
+    "L40": (8, 320, 40, lambda rng, B, R, L: rng.integers(0, L, (B, R))),
+    "R45": (5, 45, 128, lambda rng, B, R, L: rng.integers(0, L, (B, R))),
+    "B1": (1, 320, 128, lambda rng, B, R, L: rng.integers(0, L, (B, R))),
+    "B7": (7, 320, 128, lambda rng, B, R, L: rng.integers(0, L, (B, R))),
+    "wide": (5, 4000, 128, lambda rng, B, R, L: rng.integers(0, L, (B, R))),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K7B_CASES))
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+def test_cluster_compress_edge_cases(cuda_device, case, dt):
+    """The compress kernel's per-slot lists on edge cases, bitwise: every
+    lane in one slot, most slots empty, L < 128, R not a multiple of 32,
+    B = 1, B not a multiple of the four clusters per block, R = 4000."""
+    B, R, L, make = K7B_CASES[case]
+    rng = np.random.default_rng(13)
+    lc = torch.as_tensor(make(rng, B, R, L).astype(np.int32),
+                         device=cuda_device)
+    Fe = torch.as_tensor(rng.standard_normal((B, R, 3)), dtype=dt,
+                         device=cuda_device)
+    launches = tck.CLUSTER_COMPRESS.launches
+    got = tck.cluster_compress(lc, Fe, L)
+    assert tck.CLUSTER_COMPRESS.launches == launches + 1
+    assert torch.equal(got, tck.cluster_compress_plain(lc, Fe, L))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cluster_compress_limit_raises(cuda_device):
+    """A cluster whose lanes exceed a block's shared memory raises."""
+    lc = torch.zeros((1, 20000), dtype=torch.int32, device=cuda_device)
+    Fe = torch.zeros((1, 20000, 3), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        tck.cluster_compress(lc, Fe, 128)
+
+
+K1_EDGE_MESHES = {"c3d10": ("box_tet10", (6, 5, 4)),
+                  "c3d4": ("box_tet", (6, 5, 4)),
+                  "c3d8": ("box_hex", (10, 8, 6))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("etype", list(K1_EDGE_MESHES))
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+def test_fused_yc_edge_buckets(cuda_device, etype, dt):
+    """fused_yc on parts of the largest bucket, bitwise against its plain
+    version: its last cluster, its last five (not a multiple of the four
+    clusters per block) and all but the first (the bucket starts with
+    clusters that hold only padding); with window rows padded (== Nb) and
+    slots emptied (wslot >= wk) by hand; all three (k, q)."""
+    gen, dims = K1_EDGE_MESHES[etype]
+    coords, conn = getattr(tpufem_torch.meshgen, gen)(*dims)
+    coords = coords.copy()
+    coords[:, 0] += 0.04 * np.sin(2.0 * coords[:, 1]) * coords[:, 2]
+    op = tpufem_torch.PackedPartialOperator.build(
+        coords, conn, etype, E, NU, n_nodes=coords.shape[0], dtype=dt,
+        device=cuda_device)
+    tp, m = op.plan, op.plan.meta
+    jinv, w = op.cluster_geometry()
+    lam, mu = op.lam_mu
+    gi = max(range(len(m.c_groups)), key=lambda g: m.c_groups[g][1])
+    s, n, wk = m.c_groups[gi]
+    assert n >= 6 and wk > 1
+    X = torch.as_tensor(np.random.default_rng(14).standard_normal(
+        (m.n_blocks, 384)), dtype=dt, device=cuda_device)
+    for lo, hi in ((n - 1, n), (n - 5, n), (1, n)):
+        sl = slice(s + lo, s + hi)
+        win, wsl = tp.win_nodes[sl].clone(), tp.wslot[sl].clone()
+        win[:, wk - 1] = m.n_blocks              # a padded window row
+        wsl[:, ::7] = wk                         # empty slots
+        args = (X, win, wsl, tp.jslot[sl], tp.lconn[sl],
+                tp.cinc[gi][lo:hi], jinv[sl], w[sl], op.dN, lam, mu,
+                m.cv_widths[gi])
+        launches = tfk.FUSED_YC.launches
+        got = tfk.fused_yc(*args, wk=wk)
+        assert tfk.FUSED_YC.launches == launches + 1
+        assert got[-1].abs().max() > 0
+        assert torch.equal(got, tfk.fused_yc_plain(*args, wk=wk))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_static_solve_on_card_matches_cpu(cuda_device):
     """The clustered static solve on the card (K6, K7a, K7b) against the

@@ -2,16 +2,75 @@
 // compress_gather, expand, expand_planar, compress_planar): the packed
 // layout constants, the byte-packed table decode, the two-hop gather
 // (X rows -> cluster slots -> element lanes) and the per-slot incidence
-// sum.
+// sum; and the asynchronous copies into shared memory that fused_yc and
+// cluster_compress stage their tables with.
 #pragma once
 
 #include "common.cuh"
 
 namespace tpufem {
 
+// cp.async of N = 4, 8 or 16 bytes from global to shared memory; with
+// `from_src` false it writes N zero bytes and reads nothing.  A thread sees
+// its own copies after cp_async_wait; other threads after a barrier.
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         bool from_src = true) {
+  static_assert(N == 4 || N == 8 || N == 16, "cp.async copies 4, 8 or 16 B");
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(from_src ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+                 "l"(gmem), "n"(N), "r"(from_src ? N : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy `n` 4-byte words from global to shared memory with the kThreads
+// threads of a block (t = 0..kThreads-1), 16 bytes a copy where both ends
+// are 16-byte aligned and n is a multiple of 4, else a word a copy.
+template <int kThreads>
+__device__ __forceinline__ void stage_words(void* dst, const void* src,
+                                            int64_t n, int t) {
+  const bool vec = ((reinterpret_cast<uintptr_t>(dst) |
+                     reinterpret_cast<uintptr_t>(src)) & 15) == 0 &&
+                   (n & 3) == 0;
+  auto* d = static_cast<unsigned char*>(dst);
+  const auto* s = static_cast<const unsigned char*>(src);
+  if (vec) {
+    for (int64_t i = t; i < n / 4; i += kThreads)
+      cp_async<16>(d + 16 * i, s + 16 * i);
+  } else {
+    for (int64_t i = t; i < n; i += kThreads) cp_async<4>(d + 4 * i, s + 4 * i);
+  }
+}
+
+// Ask for the 128-byte lines of [p, p + nbytes) to be brought into L2.
+__device__ __forceinline__ void prefetch_l2(const void* p, int64_t nbytes,
+                                            int t, int nthreads) {
+  const auto* c = static_cast<const unsigned char*>(p);
+  for (int64_t off = 128 * static_cast<int64_t>(t); off < nbytes;
+       off += 128 * static_cast<int64_t>(nthreads))
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(c + off));
+}
+
 constexpr int kSlots = 128;      // slots per cluster = nodes per packed row
 constexpr int kRow = 3 * kSlots; // lanes per packed row: component c at c*128
 constexpr int kMaxChunks = 16;   // 128-lane chunks of element lanes (k*E_c <= 2048)
+constexpr size_t kMaxSmem = 232448;   // shared memory a block can use (H100)
 
 // Per-128-lane-chunk widths of a cluster bucket's incidence lists.
 struct VWidths {

@@ -7,7 +7,9 @@ kernel function here is a wrapper: on a CPU tensor it runs the plain
 PyTorch version beside it; on a CUDA tensor it launches the hand-written
 kernel (csrc/cluster.cu) or raises.  The plain versions gather and sum by
 index, the compress in increasing lane order from 0 as the kernel does, so
-the two agree bitwise.
+the two agree bitwise.  ``slot_lists`` is the index arithmetic of the
+compress kernel (each slot's lanes, r ascending) in plain PyTorch, for the
+tests.
 
 lconn [B, R] int32 is ClusterPlan.lconn [B, E_c, k] flattened
 element-major (r = e * k + kk), with entries in [0, L).
@@ -28,6 +30,24 @@ CLUSTER_COMPRESS = cuda.CudaKernel(
     {"tpufem_cluster_compress": [cuda.I32, cuda.VP, cuda.VP, cuda.I64,
                                  cuda.I32, cuda.I32, cuda.I32, cuda.VP,
                                  cuda.VP]})
+
+
+# one cluster's shared memory in the compress kernel must fit in a block's
+# (csrc/cluster.cu CompressLayout; one warp per cluster); its lane ranks
+# and slots are packed into 16 bits each
+SMEM_LIMIT = 232448
+MAX_LANES, MAX_SLOTS = 32767, 65535
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def compress_smem_bytes(R: int, L: int, itemsize: int) -> int:
+    """Shared memory the compress kernel gives one cluster: Fe [R, 3],
+    lconn [R], the lists [R] and their starts [L + 1]."""
+    return (_align16(R * 3 * itemsize) + 2 * _align16(R * 4)
+            + _align16((L + 1) * 4))
 
 
 def _check(name, lconn, x, B):
@@ -78,6 +98,35 @@ def cluster_compress_plain(lconn: torch.Tensor, Fe: torch.Tensor, L: int
     return out
 
 
+def slot_lists(lconn: torch.Tensor, L: int):
+    """Each slot's lanes, r ascending, as the compress kernel builds them.
+
+    Over 32-lane chunks of r in order, a lane's rank is its slot's count so
+    far plus the number of earlier lanes of its chunk in the same slot
+    (__match_any_sync and a popc in the kernel); the starts are the
+    exclusive scan of the counts, and lane r goes to its slot's start plus
+    its rank.  Returns (start [B, L + 1], lanes [B, R]), int64: slot l's
+    lanes are lanes[b, start[b, l]:start[b, l + 1]]."""
+    B, R = lconn.shape
+    lc = lconn.long()
+    dev = lc.device
+    cnt = torch.zeros((B, L), dtype=torch.long, device=dev)
+    rank = torch.empty((B, R), dtype=torch.long, device=dev)
+    for r0 in range(0, R, 32):
+        ch = lc[:, r0:r0 + 32]
+        w = ch.shape[1]
+        below = torch.ones((w, w), dtype=torch.bool, device=dev).tril(-1)
+        peers_below = ((ch[:, :, None] == ch[:, None, :]) & below).sum(2)
+        rank[:, r0:r0 + w] = cnt.gather(1, ch) + peers_below
+        cnt.scatter_add_(1, ch, torch.ones_like(ch))
+    start = torch.zeros((B, L + 1), dtype=torch.long, device=dev)
+    start[:, 1:] = cnt.cumsum(1)
+    lanes = torch.empty((B, R), dtype=torch.long, device=dev)
+    lanes.scatter_(1, start.gather(1, lc) + rank,
+                   torch.arange(R, device=dev).expand(B, R))
+    return start, lanes
+
+
 def cluster_compress(lconn: torch.Tensor, Fe: torch.Tensor, L: int
                      ) -> torch.Tensor:
     """[B, R, nd] element-lane values -> [B, L, nd] cluster slot sums."""
@@ -92,10 +141,13 @@ def cluster_compress(lconn: torch.Tensor, Fe: torch.Tensor, L: int
         raise RuntimeError(f"cluster_compress: no kernel for {Fe.device}")
     cuda.check_cuda_args("cluster_compress", Fe.device, Fe.dtype,
                          floats=(Fe,), ints=(lconn,))
-    if nd != 3 or R * (nd * Fe.element_size() + 4) > 48 * 1024:
-        raise ValueError(f"cluster_compress: built for 3 values per node and "
-                         f"a cluster's lanes within 48 KB of shared memory; "
-                         f"got nd {nd}, R {R}")
+    smem = compress_smem_bytes(R, L, Fe.element_size())
+    if nd != 3 or R > MAX_LANES or L > MAX_SLOTS or smem > SMEM_LIMIT:
+        raise ValueError(
+            f"cluster_compress: the kernel takes 3 values per node, at most "
+            f"{MAX_LANES} lanes and {MAX_SLOTS} slots per cluster, and one "
+            f"cluster's lanes within {SMEM_LIMIT} bytes of shared memory; "
+            f"got nd {nd}, R {R}, L {L} ({smem} bytes)")
     out = torch.empty((B, L, nd), dtype=Fe.dtype, device=Fe.device)
     CLUSTER_COMPRESS.launch("tpufem_cluster_compress",
                             int(Fe.dtype == torch.float64), cuda.ptr(lconn),

@@ -29,10 +29,22 @@ FUSED_YC = cuda.CudaKernel(
         cuda.I32, cuda.I32, cuda.I32, cuda.VP, cuda.I64, cuda.VP, cuda.I32,
         cuda.I32, cuda.VP, cuda.VP, cuda.VP, cuda.I32, cuda.VP, cuda.I32,
         cuda.VP, cuda.I32, cuda.VP, cuda.I32, cuda.VP, cuda.F64, cuda.F64,
-        cuda.VP, cuda.I32, cuda.VP, cuda.I64, cuda.VP]})
+        cuda.VP, cuda.I32, cuda.VP, cuda.I64, cuda.VP],
+     "tpufem_fused_yc_occupancy": [cuda.I32] * 6})
 # (k, q) the kernel is instantiated for: the default rules of c3d10, c3d4
 # and c3d8 (csrc/fused_yc.cu dispatch)
 KERNEL_KQ = ((10, 4), (4, 1), (8, 8))
+
+
+def occupancy(dtype, k: int, q: int, Wp: int, Rp: int, n_chunks: int
+              ) -> int:
+    """Blocks of the kernel one SM of the card holds at once for these
+    table widths (needs the card)."""
+    res = FUSED_YC.lib().tpufem_fused_yc_occupancy(
+        int(dtype == torch.float64), k, q, Wp, Rp, n_chunks)
+    if res < 0:
+        raise RuntimeError(f"fused_yc occupancy: CUDA error {-res}")
+    return res
 
 
 def _pa_planes(ue, Ji, Wq, dN, lam, mu):
