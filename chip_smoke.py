@@ -15,12 +15,16 @@ printed):
   2. build: every CUDA kernel from tpufem_torch/csrc with nvcc (sm_90a),
      one nvcc per source, all at once; each instantiation's demangled name,
      registers, shared memory and spills (-Xptxas -v); fails if an f32
-     instantiation of fused_yc or cluster_compress spills;
+     instantiation of fused_yc, combine, cluster_expand or cluster_compress
+     spills;
   The refined packed solve:
   3. setup: mesh, packed plan and the f32 operator's geometry;
   4. parity: each kernel against its plain PyTorch version on the mesh's
      real tables, every bucket, seeded random inputs: bitwise in f32 (the
-     kernels are built with -fmad=false), <= 1e-13 relative in f64; and
+     kernels are built with -fmad=false), <= 1e-13 relative in f64 (combine,
+     one launch over all rows at the plan's row widths, also bitwise in
+     f64, and its plain version bitwise against the plain version bucket
+     by bucket); and
      the times of one sweep (all buckets) of each kernel and of its plain
      version from CUDA events (the kernel's includes the gaps while the
      host launches), beside the least time the card could take;
@@ -37,14 +41,17 @@ printed):
      then each kernel's device time per sweep, the "ms" of the JSON line;
      K1's sweep against the K4 expand + K3 compress_gather sweeps on the
      same tables, six profiler windows each taken in turns (min, median,
-     max; K1's "ms" is the median), and K1's blocks per SM.
+     max; K1's "ms" is the median), and K1's blocks per SM; K2's sweep in
+     turns with its index_add_ yardstick the same way (its "ms" and
+     "library_ms" are the medians of the device times).
   The assembled-stiffness static solve (the same mesh and load: E =
   200e9, nu = 0.3, z = 0 fixed, -1e3 in z on the top face):
   8a. stiffness_fused (K6) against its plain version, bitwise, in f32 and
       f64: c3d10 on every element, c3d4, c3d8 and c3d6 on small curved
       meshes;
   8b. cluster_expand and cluster_compress (K7a, K7b) against their plain
-      versions on every cluster, bitwise, f32 and f64;
+      versions on every cluster, bitwise, f32 and f64; and with 6 values
+      per node on a box_tet10(20) cluster plan;
   8c. f64 cross-checks (<= 1e-12 relative, max-norm): MatrixFreeOperator
       against the independent F64Operator, ClusteredOperator (apply and
       diagonal) against MatrixFreeOperator;
@@ -277,15 +284,12 @@ def bounds(op, itemsize: int, n_elements: int):
                    + (qJ * 9 + q) * E_c * itemsize + 384 * itemsize)
         cg += n * (3 * k * E_c * itemsize + words + 384 * itemsize)
     fy += m.n_blocks * 384 * itemsize                 # X, read once
+    # combine: each row's windows up to its width (PackedPlan.row_wk)
     cb = m.n_clusters * 384 * itemsize + m.n_blocks * 384 * itemsize
-    entries = 0
-    for (s, n, wk) in m.b_groups:
-        if wk == 0 or n == 0:
-            continue
-        cb += n * (wk * 4 + -(-wk // 4) * 128 * 4)
-        si = p.slotidx[s:s + n, :-(-wk // 4)]
-        entries += int(sum(((si >> (8 * b)) & 0xFF).ne(0).sum().item()
-                           for b in range(4)))
+    rw = p.row_wk.long()
+    cb += int((rw * 4 + (rw + 3) // 4 * 128 * 4).sum()) + m.n_blocks * 4
+    entries = int(sum(((p.slotidx >> (8 * b)) & 0xFF).ne(0).sum().item()
+                      for b in range(4)))
     slots = sum(int(((c >> (8 * b)) & 0xFF).ne(0).sum().item())
                 for c in p.cinc for b in range(4))
     fl_fy = n_elements * flops_per_element(op.dN) + 3 * slots
@@ -423,10 +427,26 @@ def packed_phase(args, dev):
         rel64 = float((got - want).abs().max() / want.abs().max())
         if not rel64 <= 1e-13:
             fail(f"{K.name} f64 relative error {rel64:.3e} > 1e-13")
+        if K.name == "combine" and not torch.equal(got, want):
+            fail(f"combine f64 differs from its plain version: max rel "
+                 f"{rel64:.3e}")
         parity[K.name] = (err32, rel64)
         log(f"parity {K.name}: f32 bitwise equal (max |d| {err32:.1e}), "
             f"f64 max rel {rel64:.1e}")
-    del got, want, ops[torch.float64]
+    # combine's plain version over all rows at their widths against the
+    # plain version bucket by bucket (tpufem's kernel's widths)
+    buckets = torch.cat([pk.combine_plain(
+        Yr, plan.winc[s:s + n], plan.slotidx[s:s + n], torch.full(
+            (n,), wk, dtype=torch.int32, device=dev))
+        for (s, n, wk) in m.b_groups])
+    if not torch.equal(buckets, op.combine_stage(Yr, kernel=pk.combine_plain)):
+        fail("combine's plain version over all rows differs from the same "
+             "bucket by bucket")
+    log(f"parity combine: one launch over {m.n_blocks} rows "
+        f"({int(plan.row_wk.sum())} row windows; the buckets' widths give "
+        f"{sum(n * wk for (_, n, wk) in m.b_groups)}) bitwise equal to the "
+        f"plain version bucket by bucket")
+    del got, want, buckets, ops[torch.float64]
 
     times = {}
     nb = bounds(op, 4, M)
@@ -527,7 +547,7 @@ def packed_phase(args, dev):
         log(f"  {ms / iters:.4f} ms/it  {count / iters:.1f} launches/it  "
             f"{name[:90]}")
     kernel_ms = {}
-    for K in tt.PACKED_KERNELS[1:]:        # K1: in turns with K4 + K3 below
+    for K in tt.PACKED_KERNELS[2:]:        # K1, K2: in turns below
         rows_k = device_times(sweep(K.name), args.reps)
         kernel_ms[K.name] = sum(r[1] for r in rows_k
                                 if f"{K.name}_kernel" in r[0]) / args.reps
@@ -563,13 +583,25 @@ def packed_phase(args, dev):
         f" ms ({times['fused_yc'][2] / k1[1]:.1%} of the median); occupancy "
         f"{occ} blocks of 128 threads per SM (Wp {Wp})")
 
-    # library yardsticks: one index_add_ over index tables built once
+    # library yardsticks: one index_add_ over index tables built once;
+    # K2's sweep in turns with its own (device times, six windows)
     lib = library_tables(plan)
     Bc, Nb = m.n_clusters, m.n_blocks
+    turns = windows_in_turns({
+        "library": (lambda: Yr.new_zeros(Nb * 384 + 1).index_add_(
+            0, lib["combine"], Yr.reshape(-1)), None),
+        "kernel": (sweep("combine"), "combine_kernel")}, args.reps)
+    k2, k2lib = spread(turns["kernel"]), spread(turns["library"])
+    kernel_ms["combine"] = k2[1]
+    log(f"K2 in turns with index_add_, {len(turns['kernel'])} torch.profiler "
+        f"windows of {args.reps} sweeps each: combine {fmt_spread(k2)} ms per "
+        f"sweep ({per_apply['combine']} launch per apply), "
+        f"index_add_ {fmt_spread(k2lib)} ms; bound {times['combine'][2]:.4f}"
+        f" ms ({times['combine'][2] / k2[1]:.1%} of the median); kernel "
+        f"windows in order {[round(x, 4) for x in turns['kernel']]}")
     library_ms = {
         "fused_yc": None,
-        "combine": time_ms(lambda: Yr.new_zeros(Nb * 384 + 1).index_add_(
-            0, lib["combine"], Yr.reshape(-1)), args.reps),
+        "combine": k2lib[1],
         "compress_gather": time_ms(lambda: Fe.new_zeros(
             Bc * 384 + 1).index_add_(0, lib["compress"], Fe.reshape(-1)),
             args.reps)}
@@ -603,6 +635,9 @@ def packed_phase(args, dev):
             rows[-1].update(ms_min=k1[0], ms_max=k1[2],
                             expand_plus_compress_ms=list(k43),
                             blocks_per_sm=occ)
+        if K.name == "combine":
+            rows[-1].update(ms_min=k2[0], ms_max=k2[2], library_min=k2lib[0],
+                            library_max=k2lib[2])
     ctx = dict(coords=coords, conn=conn, plan=plan, op=op)
     return rows, tip, ctx
 
@@ -672,10 +707,13 @@ def windows_in_turns(fns, reps: int, rounds: int = 3):
     """{label: [device ms per call in each window]} of fns {label: (fn,
     key)}: 2 * rounds torch.profiler windows of `reps` calls each, taken
     in turns, the labels in order and then reversed (for two: a, b, b, a),
-    so that each comparison lies inside one call.  key None counts every
-    kernel of the window (a library call may launch more than one)."""
+    so that each comparison lies inside one call, after one unprofiled
+    call of each.  key None counts every kernel of the window (a library
+    call may launch more than one)."""
     labels = list(fns)
     out = {lab: [] for lab in labels}
+    for lab in labels:
+        fns[lab][0]()
     for _ in range(rounds):
         for lab in labels + labels[::-1]:
             fn, key = fns[lab]
@@ -785,6 +823,29 @@ def static_phase(args, dev, tip_packed):
             res[name][dt] = dict(err=err)
         log(f"parity cluster_expand, cluster_compress {str(dt)[6:]}: bitwise "
             f"equal on {B} clusters")
+    # 6 values per node (a shell's), on a smaller plan
+    c6, n6 = tt.meshgen.box_tet10(20, 20, 20)
+    p6 = tt.ClusterPlan.build(n6, c6.shape[0], 6, device=dev)
+    B6, L6 = p6.n_clusters, p6.l_max
+    lc6 = p6.lconn.reshape(B6, -1)
+    for dt in (f64, f32):
+        Uc = torch.as_tensor(rng.standard_normal((B6, L6, 6)), dtype=dt,
+                             device=dev)
+        Fe = torch.as_tensor(rng.standard_normal((B6, lc6.shape[1], 6)),
+                             dtype=dt, device=dev)
+        for name, got, want in (
+                ("cluster_expand", ck.cluster_expand(lc6, Uc),
+                 ck.cluster_expand_plain(lc6, Uc)),
+                ("cluster_compress", ck.cluster_compress(lc6, Fe, L6),
+                 ck.cluster_compress_plain(lc6, Fe, L6))):
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"{name} {dt} with 6 values per node differs from its "
+                     f"plain version: max |d| "
+                     f"{float((got - want).abs().max()):.3e}")
+    log(f"parity cluster_expand, cluster_compress with 6 values per node: "
+        f"bitwise equal in f32 and f64 on {B6} clusters (box_tet10(20))")
+    del c6, n6, p6, lc6
 
     # 8c. cross-checks in f64: the assembled operator against the
     # independent geometry-factor operator, the clustered one against it
@@ -855,6 +916,7 @@ def static_phase(args, dev, tip_packed):
                 ("cluster_compress", tb, "scatter_add_",
                  lambda: ck.cluster_compress_plain(lc, Fe, L), 1, 0)):
             kern, libt = spread(tw["kernel"]), spread(tw["library"])
+            pairs = list(zip(tw["library"], tw["kernel"]))
             res[name][dt].update(
                 ms=kern[1], ms_min=kern[0], ms_max=kern[2],
                 library_ms=libt[1], library_min=libt[0],
@@ -863,7 +925,8 @@ def static_phase(args, dev, tip_packed):
             log(f"  {name} {str(dt)[6:]} in turns with {lib_name}, "
                 f"{len(tw['kernel'])} torch.profiler windows of {reps} calls "
                 f"each: kernel {fmt_spread(kern)} ms, library "
-                f"{fmt_spread(libt)} ms")
+                f"{fmt_spread(libt)} ms; windows (library, kernel) in order "
+                f"{[(round(a, 4), round(b, 4)) for a, b in pairs]}")
         res["cluster_expand"][dt].update(
             bound=bound_ms_dt(B * R * 4 + B * L * 3 * item
                               + B * R * 3 * item, 0, dt))
@@ -1572,7 +1635,8 @@ def main() -> None:
     for K in tt.KERNELS:
         log(f"  ptxas {K.name}:{ptxas_digest(K)}")
     # the redesigned kernels' f32 instantiations do not spill
-    for K in (tt.FUSED_YC, tt.CLUSTER_COMPRESS):
+    for K in (tt.FUSED_YC, tt.COMBINE, tt.CLUSTER_EXPAND,
+              tt.CLUSTER_COMPRESS):
         for e in ptxas_entries(K) or []:
             if "<float" in e["name"] and e["spill_stores"] > 0:
                 fail(f"{e['name']} spills {e['spill_stores']} bytes")

@@ -12,7 +12,10 @@
   bitwise the plain cluster_compress;
 * ClusteredOperator (apply and diagonal) on tpufem's K carried across
   agrees with tpufem's ClusteredOperator and with the port's
-  MatrixFreeOperator to <= 1e-12 relative in f64 (max-norm).
+  MatrixFreeOperator to <= 1e-12 relative in f64 (max-norm);
+* with 1, 2 or 6 values per node (a seeded symmetric K of that size), it
+  agrees with tpufem's ClusteredOperator (its one-hot path) to <= 1e-12
+  relative in f64.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -217,3 +220,19 @@ def test_clustered_plan_from_tpufem_arrays(case):
     op2 = t_cl.ClusteredOperator.build(case["K"], None, case["N"], plan=tp)
     ut = torch.from_numpy(case["u"])
     assert torch.equal(op1(ut), op2(ut))
+
+
+@pytest.mark.parametrize("nd", [1, 2, 6])
+def test_clustered_operator_dof_per_node(nd):
+    """Repair: any dof_per_node (the kernels K7a and K7b take 1 to 6)."""
+    coords, conn = meshgen.box_tet(3, 3, 2)
+    N, (M, k) = coords.shape[0], conn.shape
+    d = k * nd
+    A = np.random.default_rng(16 + nd).standard_normal((M, d, d))
+    K = A + A.transpose(0, 2, 1)
+    u = np.random.default_rng(17).standard_normal((N, nd))
+    jop = j_cl.ClusteredOperator.build(jnp.asarray(K), conn, N, nd)
+    top = t_cl.ClusteredOperator.build(K, conn, N, nd, device="cpu")
+    assert top.plan.dof_per_node == nd
+    assert _rel(top(torch.from_numpy(u)), jop(jnp.asarray(u))) <= 1e-12
+    assert _rel(top.diagonal(), jop.diagonal()) <= 1e-12

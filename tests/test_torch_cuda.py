@@ -73,11 +73,79 @@ def test_kernels_bitwise_vs_plain(multi, cuda_device, dt):
     for (s, n, wk) in m.b_groups:
         sl = slice(s, s + n)
         launches = tpk.COMBINE.launches
-        got = tpk.combine(Yc, tp.winc[sl], tp.slotidx[sl], wk)
+        wks = torch.full((n,), wk, dtype=torch.int32, device=cuda_device)
+        got = tpk.combine(Yc, tp.winc[sl], tp.slotidx[sl], wks)
         assert tpk.COMBINE.launches == launches + 1
         assert torch.equal(got, tpk.combine_plain(Yc, tp.winc[sl],
-                                                  tp.slotidx[sl], wk))
+                                                  tp.slotidx[sl], wks))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+def test_combine_all_rows_and_edge_rows(multi, cuda_device, dt):
+    """combine in one launch over all rows at their own widths (the plan's
+    row_wk, as combine_stage calls it) bitwise against combine_plain and
+    against the plain version bucket by bucket; and on a table with rows
+    of width 0 and padded windows (winc == B) in the middle of rows, at
+    per-row widths and at one width for all rows."""
+    _, _, op = multi
+    tp, m = op.plan, op.plan.meta
+    rng = np.random.default_rng(8)
+    Yc = torch.as_tensor(rng.standard_normal((m.n_clusters, 384)), dtype=dt,
+                         device=cuda_device)
+    launches = tpk.COMBINE.launches
+    got = op.combine_stage(Yc)
+    assert tpk.COMBINE.launches == launches + 1
+    assert torch.equal(got, tpk.combine_plain(Yc, tp.winc, tp.slotidx,
+                                              tp.row_wk))
+    assert torch.equal(got, torch.cat([tpk.combine_plain(
+        Yc, tp.winc[s:s + n], tp.slotidx[s:s + n], torch.full(
+            (n,), wk, dtype=torch.int32, device=cuda_device))
+        for (s, n, wk) in m.b_groups]))
+    winc = tp.winc.clone()
+    winc[::3, 1] = m.n_clusters                   # padded windows
+    widths = tp.row_wk.clone()
+    widths[::5] = 0                               # rows no cluster writes
+    got = tpk.combine(Yc, winc, tp.slotidx, widths)
+    assert bool((got[::5] == 0).all())
+    assert torch.equal(got, tpk.combine_plain(Yc, winc, tp.slotidx, widths))
+    for wk in (0, 1, m.win_c):
+        wks = torch.full_like(widths, wk)
+        assert torch.equal(tpk.combine(Yc, winc, tp.slotidx, wks),
+                           tpk.combine_plain(Yc, winc, tp.slotidx, wks))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_c3d6_default_operator_on_card(cuda_device):
+    """Repair: a default-built c3d6 operator runs the staged mode on the
+    card (fused_yc has no (6, 6) instantiation) and equals its CPU path;
+    an explicit fused mode for it raises at build."""
+    coords, conn = tpufem_torch.meshgen.box_wedge(6, 5, 4)
+    coords = coords.copy()
+    coords[:, 0] += 0.04 * np.sin(2.0 * coords[:, 1]) * coords[:, 2]
+    N = coords.shape[0]
+    op = tpufem_torch.PackedPartialOperator.build(
+        coords, conn, "c3d6", E, NU, n_nodes=N, dtype=torch.float64,
+        device=cuda_device)
+    assert op.fuse == ""
+    X = torch.as_tensor(np.random.default_rng(12).standard_normal(
+        (op.plan.meta.n_blocks, 384)), device=cuda_device)
+    launches = tpk.EXPAND.launches
+    F = op(X)
+    assert tpk.EXPAND.launches > launches
+    cpu = tpufem_torch.PackedPartialOperator.build(
+        coords, conn, "c3d6", E, NU, plan=op.plan.to("cpu"),
+        geometry=(op.Jinv.cpu(), op.W.cpu()), dtype=torch.float64,
+        device="cpu")
+    assert torch.equal(F.cpu(), cpu(X.cpu()))
+    assert torch.equal(op.diagonal().cpu(), cpu.diagonal())
+    for fuse in ("dense", "narrow"):
+        with pytest.raises(ValueError, match="KERNEL_KQ"):
+            tpufem_torch.PackedPartialOperator.build(
+                coords, conn, "c3d6", E, NU, plan=op.plan, fuse=fuse,
+                device=cuda_device)
 
 
 @pytest.mark.cuda
@@ -155,9 +223,10 @@ def test_cluster_kernels_bitwise_vs_plain(cuda_device, dt):
     torch.cuda.synchronize()
 
 
-# (B, R, L, lconn maker): the compress kernel's edge cases; "wide" has more
-# lanes than the first design's 48 KB of shared memory took in f64
-K7B_CASES = {
+# (B, R, L, lconn maker): edge cases of the in-cluster kernels; "wide" has
+# more lanes than the first compress design's 48 KB of shared memory took
+# in f64, "empty" no cluster at all
+K7_CASES = {
     "one-slot": (6, 320, 128, lambda rng, B, R, L: np.full((B, R), 7)),
     "empty-slots": (9, 320, 128,
                     lambda rng, B, R, L: rng.integers(0, 30, (B, R)) * 4),
@@ -166,36 +235,85 @@ K7B_CASES = {
     "B1": (1, 320, 128, lambda rng, B, R, L: rng.integers(0, L, (B, R))),
     "B7": (7, 320, 128, lambda rng, B, R, L: rng.integers(0, L, (B, R))),
     "wide": (5, 4000, 128, lambda rng, B, R, L: rng.integers(0, L, (B, R))),
+    "empty": (0, 320, 128, lambda rng, B, R, L: np.zeros((B, R))),
 }
+K7_ND = [1, 2, 3, 6]
+
+
+def _k7_inputs(case, device, seed):
+    B, R, L, make = K7_CASES[case]
+    rng = np.random.default_rng(seed)
+    lc = torch.as_tensor(make(rng, B, R, L).astype(np.int32), device=device)
+    return B, R, L, lc, rng
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(K7B_CASES))
+@pytest.mark.parametrize("nd", K7_ND)
+@pytest.mark.parametrize("case", list(K7_CASES))
 @pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
-def test_cluster_compress_edge_cases(cuda_device, case, dt):
-    """The compress kernel's per-slot lists on edge cases, bitwise: every
-    lane in one slot, most slots empty, L < 128, R not a multiple of 32,
-    B = 1, B not a multiple of the four clusters per block, R = 4000."""
-    B, R, L, make = K7B_CASES[case]
-    rng = np.random.default_rng(13)
-    lc = torch.as_tensor(make(rng, B, R, L).astype(np.int32),
-                         device=cuda_device)
-    Fe = torch.as_tensor(rng.standard_normal((B, R, 3)), dtype=dt,
+def test_cluster_compress_edge_cases(cuda_device, case, dt, nd):
+    """The compress kernel's per-slot lists on edge cases, bitwise, for 1,
+    2, 3 and 6 values per node: every lane in one slot, most slots empty,
+    L < 128, R not a multiple of 32, B = 1, B not a multiple of the four
+    clusters per block, R = 4000, no cluster."""
+    B, R, L, lc, rng = _k7_inputs(case, cuda_device, 13)
+    Fe = torch.as_tensor(rng.standard_normal((B, R, nd)), dtype=dt,
                          device=cuda_device)
     launches = tck.CLUSTER_COMPRESS.launches
     got = tck.cluster_compress(lc, Fe, L)
     assert tck.CLUSTER_COMPRESS.launches == launches + 1
+    assert got.shape == (B, L, nd)
     assert torch.equal(got, tck.cluster_compress_plain(lc, Fe, L))
     torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nd", K7_ND)
+@pytest.mark.parametrize("case", list(K7_CASES) + ["out-of-range"])
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+def test_cluster_expand_edge_cases(cuda_device, case, dt, nd):
+    """The expand kernel on the same edge cases, bitwise, for 1, 2, 3 and
+    6 values per node; "out-of-range" has lconn entries below 0 and at or
+    above L, which read zero."""
+    if case == "out-of-range":
+        B, R, L = 7, 45, 40
+        rng = np.random.default_rng(15)
+        lc = torch.as_tensor(rng.integers(-3, L + 3, (B, R)).astype(
+            np.int32), device=cuda_device)
+    else:
+        B, R, L, lc, rng = _k7_inputs(case, cuda_device, 15)
+    Uc = torch.as_tensor(rng.standard_normal((B, L, nd)), dtype=dt,
+                         device=cuda_device)
+    launches = tck.CLUSTER_EXPAND.launches
+    got = tck.cluster_expand(lc, Uc)
+    assert tck.CLUSTER_EXPAND.launches == launches + 1
+    assert got.shape == (B, R, nd)
+    if case == "out-of-range":
+        lcl = lc.long()
+        ok = (lcl >= 0) & (lcl < L)
+        want = torch.where(ok[..., None], tck.cluster_expand_plain(
+            lcl.clamp(0, L - 1).int(), Uc), 0.0)
+        assert bool((got[~ok] == 0).all())
+    else:
+        want = tck.cluster_expand_plain(lc, Uc)
+    assert torch.equal(got, want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_cluster_compress_limit_raises(cuda_device):
-    """A cluster whose lanes exceed a block's shared memory raises."""
+    """A cluster whose lanes exceed a block's shared memory raises, and so
+    do more than 6 values per node (both kernels)."""
     lc = torch.zeros((1, 20000), dtype=torch.int32, device=cuda_device)
     Fe = torch.zeros((1, 20000, 3), dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         tck.cluster_compress(lc, Fe, 128)
+    lc = torch.zeros((2, 30), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="1 to 6 values per node"):
+        tck.cluster_compress(lc, torch.zeros((2, 30, 7), device=cuda_device),
+                             8)
+    with pytest.raises(ValueError, match="1 to 6 values per node"):
+        tck.cluster_expand(lc, torch.zeros((2, 8, 7), device=cuda_device))
 
 
 K1_EDGE_MESHES = {"c3d10": ("box_tet10", (6, 5, 4)),

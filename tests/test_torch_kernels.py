@@ -40,6 +40,11 @@ def multi():
     return _plans(10)
 
 
+def _widths(n, wk):
+    """One bucket's window width for each of its n rows."""
+    return torch.full((n,), wk, dtype=torch.int32)
+
+
 @pytest.mark.parametrize("np_dt,t_dt", DTYPES, ids=["f32", "f64"])
 def test_combine_plain_bitwise(multi, np_dt, t_dt):
     _, _, jp, tp = multi
@@ -53,8 +58,36 @@ def test_combine_plain_bitwise(multi, np_dt, t_dt):
         want = np.asarray(jpk.combine(ycw, jp.slotidx[s:s + n, :-(-wk // 4)],
                                       wk, interpret=True))
         got = tpk.combine(torch.from_numpy(Yc), tp.winc[s:s + n],
-                          tp.slotidx[s:s + n], wk)
+                          tp.slotidx[s:s + n], _widths(n, wk))
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("np_dt,t_dt", DTYPES, ids=["f32", "f64"])
+def test_combine_all_rows_bitwise(multi, np_dt, t_dt):
+    """combine over all rows at once, each at its own width (the plan's
+    row_wk: its bucket's width cut after its last real window), bitwise
+    equal to combine bucket by bucket and to tpufem's kernel in interpret
+    mode (the windows cut are padding, which adds nothing)."""
+    _, _, jp, tp = multi
+    m = tp.meta
+    Yc = np.random.default_rng(2).standard_normal(
+        (m.n_clusters, 384)).astype(np_dt)
+    Ycp = jnp.concatenate([jnp.asarray(Yc), jnp.zeros((1, 384), np_dt)])
+    want = np.concatenate([np.asarray(jpk.combine(
+        Ycp[jp.winc[s:s + n, :wk]], jp.slotidx[s:s + n, :-(-wk // 4)], wk,
+        interpret=True)) for (s, n, wk) in m.b_groups])
+    bucket = torch.cat([tpk.combine(torch.from_numpy(Yc), tp.winc[s:s + n],
+                                    tp.slotidx[s:s + n], _widths(n, wk))
+                        for (s, n, wk) in m.b_groups])
+    widths = tp.row_wk
+    assert widths.dtype == torch.int32 and widths.shape == (m.n_blocks,)
+    assert int(widths.sum()) < sum(n * wk for (_, n, wk) in m.b_groups)
+    got = tpk.combine(torch.from_numpy(Yc), tp.winc, tp.slotidx, widths)
+    assert torch.equal(got, bucket)
+    np.testing.assert_array_equal(got.numpy(), want)
+    op = t_packed.PackedPartialOperator.build(
+        *multi[:2], "c3d10", E, NU, plan=tp, device="cpu")
+    assert torch.equal(op.combine_stage(torch.from_numpy(Yc)), got)
 
 
 @pytest.mark.parametrize("np_dt,t_dt", DTYPES, ids=["f32", "f64"])
@@ -167,7 +200,8 @@ def test_wrappers_out_and_checks(fused_case):
         tfk.fused_yc(*meta, wk=wk)
     Yc = torch.zeros((tp.meta.n_clusters, 384), device="meta")
     with pytest.raises(RuntimeError):
-        tpk.combine(Yc, tp.winc.to("meta"), tp.slotidx.to("meta"), 1)
+        tpk.combine(Yc, tp.winc.to("meta"), tp.slotidx.to("meta"),
+                    tp.row_wk.to("meta"))
     fe = torch.zeros((n, 3, tp.meta.lanes), device="meta")
     with pytest.raises(RuntimeError):
         tpk.compress_gather(fe, tp.cinc[0].to("meta"), tp.meta.cv_widths[0])

@@ -299,3 +299,41 @@ def test_staged_wrappers_out_and_checks(plans):
     with pytest.raises(RuntimeError):
         tpk.compress_planar(view.to("meta"), tp.cinc[0].to("meta"),
                             m.cv_widths[0])
+
+
+def test_default_rule_runs_staged_without_an_instantiation():
+    """Repair: the default rule picks the staged mode for an element whose
+    (k, q) fused_yc is not built for (c3d6 (6, 6); c3d10 with the "full"
+    rule (10, 11)), on every device; the c3d6 operator's apply and
+    diagonal agree with tpufem's default (fused, interpret-mode) operator
+    to <= 1e-12 relative in f64 (the same element arithmetic in another
+    layout)."""
+    coords, conn = meshgen.box_wedge(2, 2, 2)
+    coords = coords.copy()
+    coords[:, 0] += 0.04 * np.sin(2.0 * coords[:, 1]) * coords[:, 2]
+    N = coords.shape[0]
+    jp = j_packed.PackedPlan.build(coords, conn, N)
+    op = j_packed.PackedPartialOperator.build(
+        jnp.asarray(coords), conn, "c3d6", E, NU, plan=jp, interpret=True)
+    assert op.flags.fuse == "dense"
+    X = np.array(jp.pack(jnp.asarray(
+        np.random.default_rng(6).standard_normal((N, 3)))))
+    F, d = jax.jit(lambda o, x: (o(x), o.diagonal()))(op, jnp.asarray(X))
+    top = tpufem_torch.PackedPartialOperator.build(
+        coords, conn, "c3d6", E, NU, n_nodes=N, dtype=torch.float64,
+        device="cpu")
+    q, k, _ = top.dN.shape
+    assert (k, q) not in tfk.KERNEL_KQ and top.fuse == ""
+    assert _rel(top(torch.from_numpy(X)).numpy(), np.asarray(F)) <= 1e-12
+    assert _rel(top.diagonal().numpy(), np.asarray(d)) <= 1e-12
+    # cluster-major geometry given to the constructor with fuse=None is
+    # taken to the staged layout by the same rule
+    Jc, Wc = top.cluster_geometry()
+    again = tpufem_torch.PackedPartialOperator(top.plan, Jc, Wc, top.dN,
+                                               *top.lam_mu)
+    assert again.fuse == "" and torch.equal(again.Jinv, top.Jinv)
+    c10, n10 = meshgen.box_tet10(2, 2, 2)
+    full = tpufem_torch.PackedPartialOperator.build(
+        c10, n10, "c3d10", E, NU, n_nodes=c10.shape[0], rule="full",
+        device="cpu")
+    assert full.dN.shape[:2] == (11, 10) and full.fuse == ""

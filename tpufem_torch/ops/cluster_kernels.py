@@ -32,21 +32,29 @@ CLUSTER_COMPRESS = cuda.CudaKernel(
                                  cuda.VP]})
 
 
-# one cluster's shared memory in the compress kernel must fit in a block's
-# (csrc/cluster.cu CompressLayout; one warp per cluster); its lane ranks
-# and slots are packed into 16 bits each
+# one cluster's shared memory in either kernel must fit in a block's
+# (csrc/cluster.cu ExpandLayout, CompressLayout); the compress kernel packs
+# its lane ranks and slots into 16 bits each; both are instantiated for 1
+# to 6 values per node
 SMEM_LIMIT = 232448
 MAX_LANES, MAX_SLOTS = 32767, 65535
+MAX_ND = 6
 
 
 def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
-def compress_smem_bytes(R: int, L: int, itemsize: int) -> int:
-    """Shared memory the compress kernel gives one cluster: Fe [R, 3],
+def expand_smem_bytes(R: int, L: int, nd: int, itemsize: int) -> int:
+    """Shared memory the expand kernel gives one cluster: Uc [L, nd] and
+    lconn [R]."""
+    return _align16(L * nd * itemsize) + _align16(R * 4)
+
+
+def compress_smem_bytes(R: int, L: int, nd: int, itemsize: int) -> int:
+    """Shared memory the compress kernel gives one cluster: Fe [R, nd],
     lconn [R], the lists [R] and their starts [L + 1]."""
-    return (_align16(R * 3 * itemsize) + 2 * _align16(R * 4)
+    return (_align16(R * nd * itemsize) + 2 * _align16(R * 4)
             + _align16((L + 1) * 4))
 
 
@@ -75,6 +83,12 @@ def cluster_expand(lconn: torch.Tensor, Uc: torch.Tensor) -> torch.Tensor:
     cuda.check_cuda_args("cluster_expand", Uc.device, Uc.dtype, floats=(Uc,),
                          ints=(lconn,))
     R = lconn.shape[1]
+    smem = expand_smem_bytes(R, L, nd, Uc.element_size())
+    if not 1 <= nd <= MAX_ND or smem > SMEM_LIMIT:
+        raise ValueError(
+            f"cluster_expand: the kernel takes 1 to {MAX_ND} values per node "
+            f"and one cluster's values and lanes within {SMEM_LIMIT} bytes "
+            f"of shared memory; got nd {nd}, R {R}, L {L} ({smem} bytes)")
     out = torch.empty((B, R, nd), dtype=Uc.dtype, device=Uc.device)
     CLUSTER_EXPAND.launch("tpufem_cluster_expand",
                           int(Uc.dtype == torch.float64), cuda.ptr(lconn),
@@ -141,13 +155,14 @@ def cluster_compress(lconn: torch.Tensor, Fe: torch.Tensor, L: int
         raise RuntimeError(f"cluster_compress: no kernel for {Fe.device}")
     cuda.check_cuda_args("cluster_compress", Fe.device, Fe.dtype,
                          floats=(Fe,), ints=(lconn,))
-    smem = compress_smem_bytes(R, L, Fe.element_size())
-    if nd != 3 or R > MAX_LANES or L > MAX_SLOTS or smem > SMEM_LIMIT:
+    smem = compress_smem_bytes(R, L, nd, Fe.element_size())
+    if (not 1 <= nd <= MAX_ND or R > MAX_LANES or L > MAX_SLOTS
+            or smem > SMEM_LIMIT):
         raise ValueError(
-            f"cluster_compress: the kernel takes 3 values per node, at most "
-            f"{MAX_LANES} lanes and {MAX_SLOTS} slots per cluster, and one "
-            f"cluster's lanes within {SMEM_LIMIT} bytes of shared memory; "
-            f"got nd {nd}, R {R}, L {L} ({smem} bytes)")
+            f"cluster_compress: the kernel takes 1 to {MAX_ND} values per "
+            f"node, at most {MAX_LANES} lanes and {MAX_SLOTS} slots per "
+            f"cluster, and one cluster's lanes within {SMEM_LIMIT} bytes of "
+            f"shared memory; got nd {nd}, R {R}, L {L} ({smem} bytes)")
     out = torch.empty((B, L, nd), dtype=Fe.dtype, device=Fe.device)
     CLUSTER_COMPRESS.launch("tpufem_cluster_compress",
                             int(Fe.dtype == torch.float64), cuda.ptr(lconn),

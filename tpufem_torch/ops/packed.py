@@ -18,16 +18,17 @@ compare bitwise with tpufem's and operator results agree to roundoff.
   (Yc [B, 384]).  Staged (fuse="", any E_c): per cluster bucket the
   expand kernel writes the element lanes ue [B, 3, Rp]; the planar
   element math runs once over all clusters in plain PyTorch; the
-  compress_gather kernel sums the slots.  Then, per block bucket, the
-  combine kernel sums each node's cluster slots (F [Nb, 384]).  No window
-  rows (Xw, Ycw) are materialized: the kernels read rows of X and Yc by
-  index.
+  compress_gather kernel sums the slots.  Then the combine kernel sums
+  each node's cluster slots (F [Nb, 384]), all block buckets in one
+  launch.  No window rows (Xw, Ycw) are materialized: the kernels read
+  rows of X and Yc by index.
 * Block Jacobi: the assembled 3x3 node-block diagonal (block_diagonal),
   inverted in closed form per node (invert_block_planes, BlockJacobi).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 from typing import Dict, Optional, Tuple
@@ -181,6 +182,21 @@ class PackedPlan:
     @property
     def device(self) -> torch.device:
         return self.lconn.device
+
+    @functools.cached_property
+    def row_wk(self) -> torch.Tensor:
+        """[Nb] int32: the combine window width of each node-block row, its
+        block bucket's width cut after its last real window (winc < B).
+        The windows cut are padding, which adds nothing, so combine over
+        these widths equals combine bucket by bucket; built once, on the
+        plan's device."""
+        m = self.meta
+        bucket = torch.zeros(m.n_blocks, dtype=torch.long, device=self.device)
+        for (s, n, wk) in m.b_groups:
+            bucket[s:s + n] = wk
+        w = torch.arange(1, self.winc.shape[1] + 1, device=self.device)
+        last = torch.where(self.winc < m.n_clusters, w, 0).amax(1)
+        return torch.minimum(bucket, last).to(torch.int32).contiguous()
 
     def to(self, device) -> "PackedPlan":
         dev = torch.device(device)
@@ -684,6 +700,28 @@ def planar_to_lanes(fe3: torch.Tensor, Rp: int) -> torch.Tensor:
 FUSE_MODES = ("", "dense", "narrow")
 
 
+def fuse_mode(fuse: Optional[str], E_c: int, k: int, q: int,
+              device: torch.device) -> str:
+    """The mode an operator runs.  fuse=None: "dense" when E_c divides 128
+    and fused_yc is instantiated for (k, q) (fused_kernels.KERNEL_KQ),
+    else "" (staged: expand, the element math, compress_gather), on every
+    device, so that the CPU runs the mode the card runs.  An explicit
+    "dense" or "narrow" needs E_c to divide 128 and, on a CUDA device,
+    (k, q) in KERNEL_KQ."""
+    if fuse is None:
+        return "dense" if BLK % E_c == 0 and (k, q) in fk.KERNEL_KQ else ""
+    if fuse not in FUSE_MODES:
+        raise ValueError(f"fuse must be one of {FUSE_MODES}, got {fuse!r}")
+    if fuse and BLK % E_c:
+        raise ValueError(f"fuse={fuse!r} needs elems_per_cluster to "
+                         f"divide 128 (got {E_c}); use fuse=''")
+    if fuse and device.type == "cuda" and (k, q) not in fk.KERNEL_KQ:
+        raise ValueError(f"fuse={fuse!r}: fused_yc is built for (k, q) in "
+                         f"KERNEL_KQ = {fk.KERNEL_KQ}, got ({k}, {q}); use "
+                         f"fuse=''")
+    return fuse
+
+
 def _as_float(g, dtype, dev) -> torch.Tensor:
     if not torch.is_tensor(g):     # a copy: another package's array may
         g = np.array(g)              # be read-only
@@ -704,13 +742,20 @@ class PackedPartialOperator(torch.nn.Module):
     def __init__(self, plan: PackedPlan, Jinv: torch.Tensor, W: torch.Tensor,
                  dN: np.ndarray, lam: float, mu: float,
                  fuse: Optional[str] = None):
-        """fuse=None: "dense" for cluster-major (3-D) geometry, "" for
-        planar (4-D)."""
+        """fuse=None: "dense" for cluster-major (3-D) geometry where
+        fuse_mode's rule allows it, else "" (cluster-major geometry is
+        then taken to the planar layout)."""
         super().__init__()
-        if fuse is None:
-            fuse = "dense" if Jinv.dim() == 3 else ""
-        if fuse not in FUSE_MODES:
-            raise ValueError(f"fuse must be one of {FUSE_MODES}, got {fuse!r}")
+        q, k, _ = np.shape(dN)
+        E_c = plan.meta.elems_per_cluster
+        if fuse is None and Jinv.dim() == 3:
+            fuse = fuse_mode(None, E_c, k, q, Jinv.device)
+            if not fuse:
+                B = plan.meta.n_clusters
+                Jinv = Jinv.reshape(B, -1, 9, E_c).permute(1, 2, 0, 3)
+                Jinv, W = Jinv.contiguous(), W.permute(1, 0, 2).contiguous()
+        fuse = fuse_mode("" if fuse is None else fuse, E_c, k, q,
+                         Jinv.device)
         if Jinv.dim() != (3 if fuse else 4):
             raise ValueError(f"fuse={fuse!r} stores Jinv "
                              f"{'[B, qJ*9, E_c]' if fuse else '[qJ, 9, B, E_c]'}"
@@ -730,10 +775,12 @@ class PackedPartialOperator(torch.nn.Module):
               window_buckets: int = 8, fuse: Optional[str] = None,
               geometry: Optional[Tuple] = None,
               device=None) -> "PackedPartialOperator":
-        """fuse: None picks tpufem's rule, "dense" when elems_per_cluster
-        divides 128, else "" (staged); "dense"/"narrow" need it to divide
-        128.  geometry: optional (Jinv, W) taken from an operator of either
-        layout (tpufem's or the port's, arrays or tensors): cluster-major
+        """fuse: None picks fuse_mode's rule, "dense" when
+        elems_per_cluster divides 128 and fused_yc is built for the
+        element's (k, q), else "" (staged); "dense"/"narrow" need it to
+        divide 128 (and, on the card, the (k, q)).  geometry: optional
+        (Jinv, W) taken from an operator of either layout (tpufem's or
+        the port's, arrays or tensors): cluster-major
         [B, qJ*9, E_c] / [B, q, E_c] or planar [qJ, 9, B, E_c] /
         [q, B, E_c]; skips the geometry pass."""
         from ..core.materials import lame_parameters
@@ -753,13 +800,8 @@ class PackedPartialOperator(torch.nn.Module):
         m = plan.meta
         table = element_table(etype, rule)
         B, E_c = m.n_clusters, m.elems_per_cluster
-        if fuse is None:
-            fuse = "dense" if BLK % E_c == 0 else ""
-        if fuse not in FUSE_MODES:
-            raise ValueError(f"fuse must be one of {FUSE_MODES}, got {fuse!r}")
-        if fuse and BLK % E_c:
-            raise ValueError(f"fuse={fuse!r} needs elems_per_cluster to "
-                             f"divide 128 (got {E_c}); use fuse=''")
+        q, k, _ = table.dN.shape
+        fuse = fuse_mode(fuse, E_c, k, q, dev)
         if geometry is not None:
             Jg, Wg = (_as_float(g, dtype, dev) for g in geometry)
             if (Jg.dim() == 3 and Wg.dim() == 3 and Jg.shape[0] == B
@@ -821,10 +863,11 @@ class PackedPartialOperator(torch.nn.Module):
         return (self.Jinv.permute(2, 0, 1, 3).reshape(B, qJ * 9, E_c)
                 .contiguous(), self.W.permute(1, 0, 2).contiguous())
 
-    # Each stage loops over its buckets and calls its kernel(s) once per
-    # bucket: the wrapper by default; the kernel's plain version has the
-    # same signature, so a caller can run a stage through it for
-    # comparison.
+    # Each cluster stage loops over its buckets and calls its kernel(s)
+    # once per bucket; the combine stage calls its kernel once for all
+    # rows.  The kernel is the wrapper by default; the kernel's plain
+    # version has the same signature, so a caller can run a stage through
+    # it for comparison.
 
     def fused_stage(self, X: torch.Tensor, kernel=fk.fused_yc,
                     geometry=None) -> torch.Tensor:
@@ -885,17 +928,11 @@ class PackedPartialOperator(torch.nn.Module):
 
     def combine_stage(self, Yc: torch.Tensor, kernel=pk.combine
                       ) -> torch.Tensor:
-        """Slot sums [B, 384] -> node rows [Nb, 384] (per block bucket)."""
+        """Slot sums [B, 384] -> node rows [Nb, 384]: one call over all
+        block buckets, each row at its own width (PackedPlan.row_wk; rows
+        of width 0, which no cluster writes, are zero)."""
         p = self.plan
-        F = torch.empty((p.meta.n_blocks, ROW), dtype=Yc.dtype,
-                        device=Yc.device)
-        for (s, n, wk) in p.meta.b_groups:
-            if wk == 0 or n == 0:      # blocks no cluster writes -> zero rows
-                F[s:s + n].zero_()
-                continue
-            kernel(Yc, p.winc[s:s + n], p.slotidx[s:s + n], wk,
-                   out=F[s:s + n])
-        return F
+        return kernel(Yc, p.winc, p.slotidx, p.row_wk)
 
     def compress_stage(self, Fe: torch.Tensor, kernel=pk.compress_gather
                        ) -> torch.Tensor:
@@ -927,7 +964,7 @@ class PackedPartialOperator(torch.nn.Module):
         """Assembled 3x3 node-block diagonal as two packed fields
         ([Nb, 384] each): diagonal components (00, 11, 22) and off-diagonal
         components (01, 02, 12).  compress_gather twice per cluster bucket,
-        then combine twice per block bucket."""
+        then combine twice."""
         Jp, Wp = self._planar_geom()
         Rp = self.plan.meta.lanes
         d3, o3 = pa_blockdiag_planar(Jp, Wp, self.dN, *self.lam_mu)

@@ -34,7 +34,7 @@ BLK = 128
 COMBINE = cuda.CudaKernel(
     "combine", "combine.cu", "tpufem/ops/packed_kernels.py:373",
     {"tpufem_combine": [cuda.I32, cuda.VP, cuda.I64, cuda.VP, cuda.I32,
-                        cuda.VP, cuda.I32, cuda.I32, cuda.VP, cuda.I64,
+                        cuda.VP, cuda.I32, cuda.VP, cuda.VP, cuda.I64,
                         cuda.VP]})
 COMPRESS_GATHER = cuda.CudaKernel(
     "compress_gather", "compress_gather.cu",
@@ -370,19 +370,22 @@ def compress_planar(fe3: torch.Tensor, cinc: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def combine_plain(Yc: torch.Tensor, winc: torch.Tensor,
-                  slotidx: torch.Tensor, wk: int,
+                  slotidx: torch.Tensor, wk: torch.Tensor,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """F[j, c*128+l] = sum_w Yc[winc[j, w], c*128 + byte_w(l) - 1], w in
-    order; rows of Yc are read by index (winc == B reads zero)."""
+    order below row j's width wk[j]; rows of Yc are read by index (winc ==
+    B reads zero)."""
     B = Yc.shape[0]
     n = winc.shape[0]
+    widths = wk.long()
+    wmax = int(widths.max()) if n else 0
     acc = [torch.zeros((n, BLK), dtype=Yc.dtype, device=Yc.device)
            for _ in range(3)]
-    wc = winc[:, :wk].long()
-    for w in range(wk):
+    wc = winc[:, :wmax].long()
+    for w in range(wmax):
         byte = unpack_byte(slotidx[:, w // 4, :], w)
         rows = wc[:, w:w + 1]
-        valid = (byte > 0) & (rows < B)
+        valid = (byte > 0) & (rows < B) & (widths > w)[:, None]
         idx = (byte - 1).clamp_(min=0)
         rows = rows.clamp(max=B - 1)
         for c in range(3):
@@ -392,26 +395,31 @@ def combine_plain(Yc: torch.Tensor, winc: torch.Tensor,
 
 
 def combine(Yc: torch.Tensor, winc: torch.Tensor, slotidx: torch.Tensor,
-            wk: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Slot sums Yc [B, 384] -> node rows [n, 384] for one block bucket:
-    winc [n, Wc] int32 (pad B), slotidx [n, Wp, 128] int32 byte-packed;
-    wk = the bucket's window width (<= Wc, <= 4 * Wp)."""
+            wk: torch.Tensor, out: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """Slot sums Yc [B, 384] -> node rows [n, 384]: winc [n, Wc] int32 (pad
+    B), slotidx [n, Wp, 128] int32 byte-packed, wk [n] int32 each row's
+    window width (<= Wc, <= 4 * Wp): PackedPlan.row_wk for all block
+    buckets in one launch, or one bucket's width repeated, as tpufem's
+    kernel takes it."""
     B, row = Yc.shape
     n = winc.shape[0]
+    Wc, Wp = winc.shape[1], slotidx.shape[1]
     if (row != ROW or slotidx.shape[0] != n or slotidx.shape[2] != BLK
-            or not 0 <= wk <= min(winc.shape[1], 4 * slotidx.shape[1])):
+            or tuple(wk.shape) != (n,)):
         raise ValueError(f"shapes Yc {tuple(Yc.shape)}, winc "
                          f"{tuple(winc.shape)}, slotidx "
-                         f"{tuple(slotidx.shape)}, wk {wk}")
+                         f"{tuple(slotidx.shape)}, wk {tuple(wk.shape)}")
     if Yc.device.type == "cpu":
+        if n and not 0 <= int(wk.min()) <= int(wk.max()) <= min(Wc, 4 * Wp):
+            raise ValueError(f"row widths outside [0, {min(Wc, 4 * Wp)}]")
         return combine_plain(Yc, winc, slotidx, wk, out)
     if Yc.device.type != "cuda":
         raise RuntimeError(f"combine: no kernel for {Yc.device}")
     cuda.check_cuda_args("combine", Yc.device, Yc.dtype, floats=(Yc,),
-                         ints=(winc, slotidx))
+                         ints=(winc, slotidx, wk))
     res = _out(out, n, Yc)
     COMBINE.launch("tpufem_combine", int(Yc.dtype == torch.float64),
-                   cuda.ptr(Yc), B, cuda.ptr(winc), winc.shape[1],
-                   cuda.ptr(slotidx), slotidx.shape[1], wk, cuda.ptr(res),
-                   n, cuda.stream(Yc))
+                   cuda.ptr(Yc), B, cuda.ptr(winc), Wc, cuda.ptr(slotidx),
+                   Wp, cuda.ptr(wk), cuda.ptr(res), n, cuda.stream(Yc))
     return res
