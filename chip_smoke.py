@@ -8,6 +8,8 @@ and the relayout, row-read and planar-I/O probes.
     python3 chip_smoke.py --n 10     # a quick check at 6k elements
     python3 chip_smoke.py --phases staged   # some paths (packed, static,
                                             # staged, probes)
+    python3 chip_smoke.py --phases turns    # K6, K5b and K3 alone (run
+                        # from copies of two trees in turns to compare them)
 
 Phases (any failure exits non-zero, and the last line is then not
 printed):
@@ -15,8 +17,8 @@ printed):
   2. build: every CUDA kernel from tpufem_torch/csrc with nvcc (sm_90a),
      one nvcc per source, all at once; each instantiation's demangled name,
      registers, shared memory and spills (-Xptxas -v); fails if an f32
-     instantiation of fused_yc, combine, cluster_expand or cluster_compress
-     spills;
+     instantiation of fused_yc, combine, cluster_expand, cluster_compress,
+     stiffness_fused or compress_planar spills;
   The refined packed solve:
   3. setup: mesh, packed plan and the f32 operator's geometry;
   4. parity: each kernel against its plain PyTorch version on the mesh's
@@ -48,15 +50,18 @@ printed):
   200e9, nu = 0.3, z = 0 fixed, -1e3 in z on the top face):
   8a. stiffness_fused (K6) against its plain version, bitwise, in f32 and
       f64: c3d10 on every element, c3d4, c3d8 and c3d6 on small curved
-      meshes;
+      meshes; each of the four at M = 1 and at M one past three times the
+      kernel's elements per block, and M = 0 without a launch;
   8b. cluster_expand and cluster_compress (K7a, K7b) against their plain
       versions on every cluster, bitwise, f32 and f64; and with 6 values
       per node on a box_tet10(20) cluster plan;
   8c. f64 cross-checks (<= 1e-12 relative, max-norm): MatrixFreeOperator
       against the independent F64Operator, ClusteredOperator (apply and
       diagonal) against MatrixFreeOperator;
-  8d. device time (torch.profiler) of K6, K7a, K7b and of both operators'
-      applies, f32 and f64, beside their bounds; K7a and K7b in turns with
+  8d. device time (torch.profiler) of K6 (median of five windows, and
+      its instantiations' registers and spills), K7a, K7b and of both
+      operators' applies, f32 and f64, beside their bounds; K7a and K7b
+      in turns with
       their library yardsticks (torch.gather, scatter_add_: library,
       kernel, kernel, library), six profiler windows each (min, median,
       max; "ms" and "library_ms" are the medians); the plain versions'
@@ -72,7 +77,9 @@ printed):
   fuse=""):
   9a. expand, expand_planar and compress_planar (K4, K5a, K5b) against
       their plain versions on every bucket: bitwise in f32, <= 1e-13
-      relative in f64; expand also on a box_tet10(10) plan with
+      relative in f64 (K5b bitwise in f64 too, and bitwise equal to
+      compress_gather on the transposed input); expand also on a
+      box_tet10(10) plan with
       elems_per_cluster=24 (lanes straddle the 128-lane chunks); fused_yc's
       c3d4 and c3d8 instantiations bitwise on small curved meshes;
   9b. the staged operator against the fused one (apply, diagonal, block
@@ -89,7 +96,9 @@ printed):
       torch.profiler over 20 block-Jacobi PCG iterations; each new
       kernel's device ms per sweep, bound, plain ms and library yardstick
       (torch.take for K4/K5a, index_add_ for K5b; phase 4 adds index_add_
-      for K2/K3); 9a adds K1's c3d4 and c3d8 device ms and bounds on
+      for K2/K3); K5b's sweep in turns with K3's on the same tables (six
+      windows each; K5b's "ms" is the median) and its registers and
+      spills; 9a adds K1's c3d4 and c3d8 device ms and bounds on
       curved box_tet(n) and box_hex(m) meshes of about 6 n^3 elements.
   The probes (no mesh; B = 39,360, box_tet10(55)'s cluster count):
   10a. relayout_fwd (every variant), relayout_inv (every variant),
@@ -105,16 +114,25 @@ printed):
   10c. each kernel's device ms per launch (torch.profiler) at the 10a
        sizes, bound (bytes over 3.35 TB/s), plain ms and one library
        call's ms (CUDA events): clone() of the reshaped view, embedding_bag,
-       the permuted view's contiguous(), copy_ into a zeroed output.
+       the permuted view's contiguous(), copy_ into a zeroed output; for
+       row_accumulate also every indexed row from memory, and in the log
+       an estimate: that less the share of the source the L2 holds.
+  With --phases turns (not in the default): the timings of 8d (K6) and
+  9d (K5b in turns with K3), by the same helpers, on box_tet10(n) alone.
+  For before/after figures, copy this
+  script beside another commit's tpufem_torch (a git-ignored directory of
+  the repo) and run it there and here in turns (parent, change, change,
+  parent); the build step names the package it imported.
 It then prints {"kernels": [...]} (the static kernels' numbers are
 float64, the main path's type, with the float32 ones beside them; K1,
-K7a and K7b add ms_min and ms_max), the
+K5b, K6, K7a and K7b add ms_min and ms_max), the
 card's name and power limit, and, last, {"ok": true, "device": ...}.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -167,7 +185,6 @@ def event_times(fn, reps: int, warmup: int = 2, before=None):
 def _demangle(names):
     """C++ names demangled by the CUDA toolkit's cu++filt (or c++filt);
     the names as they are where neither is found."""
-    import os
     import shutil
 
     from tpufem_torch.ops import cuda
@@ -731,6 +748,48 @@ def fmt_spread(t) -> str:
     return f"min {t[0]:.4f}, median {t[1]:.4f}, max {t[2]:.4f}"
 
 
+def stiffness_windows(ct, conn_t):
+    """K6's c3d10 call on coordinates ct and connectivity conn_t: device
+    ms per call in five torch.profiler windows of four calls, after one
+    unprofiled call (phase 8d and --phases turns)."""
+    from tpufem_torch.ops import stiffness_kernels as sk
+
+    k6 = lambda: sk.stiffness_fused(ct, conn_t, "c3d10", E, NU)  # noqa: E731
+    k6()
+    w = [kernel_device_ms(k6, 4, "stiffness_kernel") for _ in range(5)]
+    log(f"  stiffness_fused {str(ct.dtype)[6:]} on {conn_t.shape[0]} "
+        f"elements, device ms per call, five torch.profiler windows of 4 "
+        f"calls: {fmt_spread(spread(w))}")
+    return w
+
+
+def planar_turns(op, fe3, reps: int):
+    """K5b's sweep over op's buckets on planar fe3 in turns with K3's on
+    the same tables (K3 reads the lane-major transpose of the same values,
+    and must give the same sums bitwise): {name: six windows' device ms
+    per sweep} (phase 9d and --phases turns)."""
+    from tpufem_torch.ops import probe_fused as pf
+    from tpufem_torch.ops.packed import planar_to_lanes
+
+    lanes = planar_to_lanes(fe3, op.plan.meta.lanes)
+    if not torch.equal(pf.compress_planar_stage(op, fe3),
+                       op.compress_stage(lanes)):
+        fail("compress_planar differs from compress_gather on the "
+             "transposed input")
+    tw = windows_in_turns({
+        "compress_gather": (lambda: op.compress_stage(lanes),
+                            "tpufem::compress_gather_kernel<"),
+        "compress_planar": (lambda: pf.compress_planar_stage(op, fe3),
+                            "tpufem::compress_planar_kernel<")}, reps)
+    log(f"  compress_planar in turns with compress_gather on the same "
+        f"tables ({len(op.plan.meta.c_groups)} buckets), "
+        f"{len(tw['compress_planar'])} torch.profiler windows of {reps} "
+        f"sweeps each: compress_planar "
+        f"{fmt_spread(spread(tw['compress_planar']))} ms, compress_gather "
+        f"{fmt_spread(spread(tw['compress_gather']))} ms per sweep")
+    return tw
+
+
 def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
@@ -776,21 +835,42 @@ def static_phase(args, dev, tip_packed):
         log(f"parity stiffness_fused c3d10 {str(dt)[6:]}: bitwise equal on "
             f"{M} elements; plain version {plain_ms:.1f} ms (host clock)")
     torch.cuda.empty_cache()
-    for et, (gen, dims) in K6_SMALL.items():
-        c, cn = getattr(tt.meshgen, gen)(*dims)
-        c = c.copy()
-        c[:, 0] += 0.04 * np.sin(2.0 * c[:, 1]) * c[:, 2]
+    eb = {}
+    for et, (gen, dims) in [("c3d10", (None, None))] + list(K6_SMALL.items()):
+        if gen is None:
+            c, cn = coords, conn[:4096]
+        else:
+            c, cn = getattr(tt.meshgen, gen)(*dims)
+            c = c.copy()
+            c[:, 0] += 0.04 * np.sin(2.0 * c[:, 1]) * c[:, 2]
+        q, k, _ = tt.element_table(et).dN.shape
         for dt in (f32, f64):
             ct = torch.as_tensor(c, dtype=dt, device=dev)
-            got = sk.stiffness_fused(ct, cn, et, E, NU)
-            want = sk.stiffness_fused_plain(ct, cn, et, E, NU)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                fail(f"stiffness_fused {et} {dt} differs from its plain "
-                     f"version: max |d| "
-                     f"{float((got - want).abs().max()):.3e}")
-        log(f"parity stiffness_fused {et}: bitwise equal in f32 and f64 on "
-            f"{cn.shape[0]} elements")
+            eb[et, dt] = sk.elems_per_block(k, q, dt)
+            # the whole mesh (not for c3d10: done above), then M = 1 and
+            # M one past a multiple of the elements per block
+            for m_ in ([] if gen is None else [cn.shape[0]]) + [
+                    1, 3 * eb[et, dt] + 1]:
+                got = sk.stiffness_fused(ct, cn[:m_], et, E, NU)
+                want = sk.stiffness_fused_plain(ct, cn[:m_], et, E, NU)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"stiffness_fused {et} {dt} M={m_} differs from "
+                         f"its plain version: max |d| "
+                         f"{float((got - want).abs().max()):.3e}")
+            launches = sk.STIFFNESS_FUSED.launches
+            empty = sk.stiffness_fused(ct, cn[:0], et, E, NU)
+            if (tuple(empty.shape) != (0, 3 * k, 3 * k)
+                    or sk.STIFFNESS_FUSED.launches != launches):
+                fail(f"stiffness_fused {et} {dt} at M = 0: shape "
+                     f"{tuple(empty.shape)}, launches "
+                     f"{sk.STIFFNESS_FUSED.launches - launches}")
+        log(f"parity stiffness_fused {et} (k={k}, q={q}): bitwise equal in "
+            f"f32 and f64"
+            + ("" if gen is None else f" on {cn.shape[0]} elements")
+            + f", at M = 1 and at M one past three blocks (elements per "
+            f"block f32 {eb[et, f32]}, f64 {eb[et, f64]}); M = 0 launches "
+            f"nothing")
     del got, want
 
     # 8b. K7a/K7b against their plain versions on every cluster
@@ -890,7 +970,8 @@ def static_phase(args, dev, tip_packed):
         ct = torch.as_tensor(coords, dtype=dt, device=dev)
         Uc, Fe = ins[dt]
         k6 = lambda: sk.stiffness_fused(ct, conn_t, "c3d10", E, NU)  # noqa: E731
-        ms6 = kernel_device_ms(k6, 10, "stiffness_kernel")
+        w6 = stiffness_windows(ct, conn_t)
+        ms6 = statistics.median(w6)
         ev6 = event_times(k6, 10, warmup=1)
         log(f"  stiffness_fused {str(dt)[6:]} per call by CUDA events, 10 "
             f"calls: min {min(ev6):.4f}, median "
@@ -907,7 +988,8 @@ def static_phase(args, dev, tip_packed):
             "kernel": (lambda: ck.cluster_compress(lc, Fe, L),
                        "cluster_compress_kernel")}, reps)
         res["stiffness_fused"][dt].update(
-            ms=ms6, library_ms=None, bound=bound_ms_dt(
+            ms=ms6, ms_min=min(w6), ms_max=max(w6), library_ms=None,
+            bound=bound_ms_dt(
                 M * 10 * 4 + N * 3 * item + M * 900 * item,
                 M * stiffness_flops(tt.element_table("c3d10").dN), dt))
         for name, tw, lib_name, plain, plain_reps, plain_warmup in (
@@ -946,6 +1028,8 @@ def static_phase(args, dev, tip_packed):
                 f"({b_ms / r['ms']:.1%} of it); plain {r['plain_ms']:.3f} ms"
                 + (f"; library {r['library_ms']:.4f} ms"
                    if r["library_ms"] is not None else ""))
+        if dt == f32:
+            log(f"  ptxas stiffness_fused:{ptxas_digest(sk.STIFFNESS_FUSED)}")
         log(f"time apply {str(dt)[6:]}: MatrixFreeOperator {mf_ms:.4f} ms, "
             f"ClusteredOperator {cl_ms:.4f} ms device per apply (all "
             f"kernels, torch.profiler); streaming K alone takes "
@@ -1099,7 +1183,7 @@ def staged_phase(args, dev, ctx, tip_fused):
     from tpufem_torch.ops import fused_kernels as fk
     from tpufem_torch.ops import packed_kernels as pk
     from tpufem_torch.ops import probe_fused as pf
-    from tpufem_torch.ops.packed import lanes_to_planar
+    from tpufem_torch.ops.packed import lanes_to_planar, planar_to_lanes
 
     f32, f64 = torch.float32, torch.float64
     n = args.n
@@ -1164,7 +1248,22 @@ def staged_phase(args, dev, ctx, tip_fused):
         parity[name] = (err32, rel64)
         log(f"parity {name}: f32 bitwise equal on {len(m.c_groups)} buckets "
             f"(max |d| {err32:.1e}), f64 max rel {rel64:.1e}")
-    del got, want, ops[f64]
+    # K5b: bitwise in f64 too, and bitwise equal to K3 on the lane-major
+    # transpose of its input, every bucket, both types
+    for dt in (f32, f64):
+        got = sweep("compress_planar", dt)()
+        if not torch.equal(got, sweep("compress_planar", dt, plain=True)()):
+            fail(f"compress_planar {dt} differs from its plain version")
+        k3 = ops[dt].compress_stage(planar_to_lanes(fe3.to(dt), m.lanes))
+        torch.cuda.synchronize()
+        if not torch.equal(got, k3):
+            fail(f"compress_planar {dt} differs from compress_gather on the "
+                 f"transposed input: max |d| "
+                 f"{float((got - k3).abs().max()):.3e}")
+    log(f"parity compress_planar: bitwise equal to its plain version and to "
+        f"compress_gather on the transposed input, f32 and f64, on every "
+        f"bucket (widths {[list(w) for w in m.cv_widths]})")
+    del got, want, k3, ops[f64]
     c24, n24 = tt.meshgen.box_tet10(10, 10, 10)
     op24 = tt.PackedPartialOperator.build(c24, n24, "c3d10", E, NU,
                                           n_nodes=c24.shape[0],
@@ -1369,10 +1468,15 @@ def staged_phase(args, dev, ctx, tip_fused):
                                    .reshape(B, 384),
                                    sweep("compress_planar")())}
     nb = staged_bounds(plan, 4)
+    k5b_turns = planar_turns(staged, fe3, args.reps)
+    log(f"  ptxas compress_planar:{ptxas_digest(STAGED['compress_planar'])}")
     rows = []
     for name, K in STAGED.items():
-        ms = kernel_device_ms(sweep(name), args.reps,
-                              f"tpufem::{name}_kernel<")
+        if name == "compress_planar":
+            ms = statistics.median(k5b_turns[name])
+        else:
+            ms = kernel_device_ms(sweep(name), args.reps,
+                                  f"tpufem::{name}_kernel<")
         plain_ms = time_ms(sweep(name, plain=True), 3, warmup=1)
         lib_ms = time_ms(library[name], args.reps)
         b_ms, b_by = bound_ms(*nb[name])
@@ -1386,6 +1490,9 @@ def staged_phase(args, dev, ctx, tip_fused):
             max_abs_err=parity[name][0], ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             f64_max_rel_err=parity[name][1]))
+        if name == "compress_planar":
+            rows[-1].update(ms_min=min(k5b_turns[name]),
+                            ms_max=max(k5b_turns[name]))
         log(f"time {name}: {ms:.4f} ms device per sweep (torch.profiler); "
             f"bound {b_ms:.4f} ms by {b_by} ({nb[name][0]} bytes, "
             f"{b_ms / ms:.1%} of it); plain {plain_ms:.3f} ms; library "
@@ -1529,6 +1636,8 @@ def probes_phase(args, dev):
             library_ms=events_ms(lib), bound=bound_ms(relayout_bytes, 0),
             variants={str(v): r for v, r in per.items()})
     n_unique = int(torch.unique(idx).numel())
+    l2_bytes = int(getattr(torch.cuda.get_device_properties(dev),
+                           "L2_cache_size", 50 * 2 ** 20))
     n_out = ROWDMA_READS // pk.READS
     row_fixed = ROWDMA_READS * 4 + n_out * pk.ROW * 4     # indices, output
     timing["row_accumulate"] = dict(
@@ -1544,6 +1653,11 @@ def probes_phase(args, dev):
         row_stream_bound_ms=bound_ms(ROWDMA_READS * pk.ROW * 4 + row_fixed,
                                      0)[0],
         distinct_rows=n_unique)
+    # an estimate (a model, not a bound, and not in the kernels line): the
+    # output's rows are summed in r order, so a row is not shared among
+    # outputs, and the share of src that the L2 holds is not read from memory
+    p5_estimate_ms = bound_ms(ROWDMA_READS * pk.ROW * 4 * max(
+        0.0, 1.0 - l2_bytes / (ROWDMA_SRC * pk.ROW * 4)) + row_fixed, 0)[0]
     v, p, k, E_c, Rp = (planar_in[key] for key in ("v", "p", "k", "E_c",
                                                     "Rp"))
     kE = k * E_c
@@ -1591,10 +1705,47 @@ def probes_phase(args, dev):
             f"library {r['library_ms']:.4f} ms"
             + (f"; variants {r['variants']}" if "variants" in r else "")
             + (f"; every indexed row from memory "
-               f"{r['row_stream_bound_ms']:.4f} ms"
+               f"{r['row_stream_bound_ms']:.4f} ms; estimate: every indexed "
+               f"row from memory less the share of src that the L2 "
+               f"({l2_bytes} B) holds, {p5_estimate_ms:.4f} ms "
+               f"({p5_estimate_ms / r['ms']:.1%} of the measured time)"
                if "row_stream_bound_ms" in r else ""))
     return rows_out
 
+
+
+def turns_phase(args, dev):
+    """8d's K6 timing and 9d's K5b/K3 turns alone, on box_tet10(n): run
+    once per tree in turns (parent, change, change, parent) from a copy of
+    this script beside each tree's tpufem_torch.  Prints {"turns": ...}."""
+    import tpufem_torch as tt
+
+    f32 = torch.float32
+    n = args.n
+    coords, conn = tt.meshgen.box_tet10(n, n, n)
+    N, M = coords.shape[0], conn.shape[0]
+    conn_t = torch.as_tensor(conn, device=dev)
+    out = {"tree": os.path.dirname(os.path.dirname(tt.__file__)),
+           "elements": int(M), "stiffness_fused": {}}
+    for dt in (torch.float64, f32):
+        ct = torch.as_tensor(coords, dtype=dt, device=dev)
+        out["stiffness_fused"][str(dt)[6:]] = spread(
+            stiffness_windows(ct, conn_t))
+        del ct
+        torch.cuda.empty_cache()
+    plan = tt.PackedPlan.build(coords, conn, N, device=dev)
+    op = tt.PackedPartialOperator.build(coords, conn, "c3d10", E, NU,
+                                        plan=plan, fuse="", dtype=f32,
+                                        device=dev)
+    m = plan.meta
+    rng = np.random.default_rng(args.seed + 2)
+    fe3 = torch.as_tensor(rng.standard_normal(
+        (3, m.nodes_per_elem, m.n_clusters, m.elems_per_cluster)),
+        dtype=f32, device=dev)
+    out.update({name: spread(w) for name, w in
+                planar_turns(op, fe3, args.reps).items()})
+    log(json.dumps({"turns": out}))
+    return []
 
 
 def main() -> None:
@@ -1605,10 +1756,10 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--phases", default="packed,static,staged,probes",
                     help="comma-separated subset of packed, static, staged, "
-                    "probes")
+                    "probes, turns")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
-    if not phases <= {"packed", "static", "staged", "probes"}:
+    if not phases <= {"packed", "static", "staged", "probes", "turns"}:
         ap.error(f"unknown phases {phases}")
 
     if not torch.cuda.is_available():
@@ -1629,14 +1780,19 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    built = cuda.build(tt.KERNELS)
+    kernels = tt.KERNELS
+    if phases == {"turns"}:
+        kernels = (tt.STIFFNESS_FUSED, tt.COMPRESS_GATHER, tt.COMPRESS_PLANAR)
+    built = cuda.build(kernels)
     log(f"build: {time.perf_counter() - t0:.2f} s for {built or 'none'} "
         f"(nvcc {' '.join(cuda.NVCC_FLAGS)})")
-    for K in tt.KERNELS:
+    log(f"tpufem_torch from {os.path.dirname(os.path.dirname(tt.__file__))}")
+    for K in kernels:
         log(f"  ptxas {K.name}:{ptxas_digest(K)}")
     # the redesigned kernels' f32 instantiations do not spill
-    for K in (tt.FUSED_YC, tt.COMBINE, tt.CLUSTER_EXPAND,
-              tt.CLUSTER_COMPRESS):
+    for K in set(kernels) & {tt.FUSED_YC, tt.COMBINE, tt.CLUSTER_EXPAND,
+                             tt.CLUSTER_COMPRESS, tt.STIFFNESS_FUSED,
+                             tt.COMPRESS_PLANAR}:
         for e in ptxas_entries(K) or []:
             if "<float" in e["name"] and e["spill_stores"] > 0:
                 fail(f"{e['name']} spills {e['spill_stores']} bytes")
@@ -1668,6 +1824,10 @@ def main() -> None:
         t0 = time.perf_counter()
         rows += probes_phase(args, dev)
         log(f"phase probes: {time.perf_counter() - t0:.1f} s")
+    if "turns" in phases:
+        t0 = time.perf_counter()
+        rows += turns_phase(args, dev)
+        log(f"phase turns: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

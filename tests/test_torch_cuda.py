@@ -200,6 +200,36 @@ def test_stiffness_kernel_bitwise_vs_plain(cuda_device, etype, dt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("etype", list(STIFFNESS_MESHES))
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+def test_stiffness_kernel_edge_counts(cuda_device, etype, dt):
+    """K6 at M = 1, at M one past a multiple of its elements per block, and
+    at M = 0 (no launch); one launch per call otherwise."""
+    gen, dims = STIFFNESS_MESHES[etype]
+    coords, conn = getattr(tpufem_torch.meshgen, gen)(*dims)
+    c = coords.copy()
+    c[:, 0] += 0.04 * np.sin(2.0 * c[:, 1]) * c[:, 2]
+    ct = torch.as_tensor(c, dtype=dt, device=cuda_device)
+    k = conn.shape[1]
+    q = tpufem_torch.element_table(etype).dN.shape[0]
+    eb = tsk.elems_per_block(k, q, dt)
+    ragged = (conn.shape[0] - 1) // eb * eb + 1
+    assert eb < ragged <= conn.shape[0]
+    for m in (1, ragged):
+        launches = tsk.STIFFNESS_FUSED.launches
+        got = tsk.stiffness_fused(ct, conn[:m], etype, E, NU)
+        assert tsk.STIFFNESS_FUSED.launches == launches + 1
+        want = tsk.stiffness_fused_plain(ct, conn[:m], etype, E, NU)
+        torch.cuda.synchronize()
+        assert got.shape == (m, 3 * k, 3 * k)
+        assert torch.equal(got, want)
+    launches = tsk.STIFFNESS_FUSED.launches
+    got = tsk.stiffness_fused(ct, conn[:0], etype, E, NU)
+    assert tsk.STIFFNESS_FUSED.launches == launches
+    assert got.shape == (0, 3 * k, 3 * k) and got.device == ct.device
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
 def test_cluster_kernels_bitwise_vs_plain(cuda_device, dt):
     coords, conn = tpufem_torch.meshgen.box_tet10(6, 5, 4)
@@ -453,6 +483,83 @@ def test_staged_kernels_bitwise_vs_plain(multi, cuda_device, dt):
         assert torch.equal(got, tpk.compress_gather(lanes, tp.cinc[gi],
                                                     m.cv_widths[gi]))
     torch.cuda.synchronize()
+
+
+def _random_bucket(rng, n, k, E_c, widths=None):
+    """A random incidence table for n clusters of k * E_c element lanes:
+    chunk g of the lanes gets a width (drawn from 0..6 unless given), and
+    each of its n x 128 x width entries a byte 0 (unused) .. 128 (lane
+    g * 128 + byte - 1; a lane past k * E_c reads 0), four bytes a word."""
+    n_chunks = -(-k * E_c // 128)
+    if widths is None:
+        widths = [int(w) for w in rng.integers(0, 7, n_chunks)]
+    total = sum(widths)
+    Wp = -(-total // 4)
+    b = np.zeros((n, 4 * Wp, 128), np.uint32)
+    b[:, :total] = rng.integers(0, 129, (n, total, 128))
+    words = b[:, 0::4] | b[:, 1::4] << 8 | b[:, 2::4] << 16 | b[:, 3::4] << 24
+    return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)), widths
+
+
+def _check_compress_planar(fe3, cinc, widths):
+    """K5b on fe3 (a planar array or a row slice of one) against its plain
+    version and against K3 on the lane-major transpose: bitwise, one
+    launch."""
+    n = fe3.shape[2]
+    launches = tpk.COMPRESS_PLANAR.launches
+    got = tpk.compress_planar(fe3, cinc, widths)
+    assert tpk.COMPRESS_PLANAR.launches == launches + 1
+    assert torch.equal(got, tpk.compress_planar_plain(fe3, cinc, widths))
+    lanes = tpp.planar_to_lanes(fe3.contiguous(), 128 * max(len(widths), 1))
+    assert torch.equal(got, tpk.compress_gather(lanes, cinc, widths))
+    torch.cuda.synchronize()
+    assert got.shape == (n, 384)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("k", [4, 8, 10])
+@pytest.mark.parametrize("E_c", [8, 16, 32])
+def test_compress_planar_shapes(cuda_device, E_c, k, dt):
+    """K5b for E_c in {8, 16, 32} and k in {4, 8, 10} on random tables, on
+    a whole planar array and on a row slice of a larger one (n = 37: the
+    last block holds one cluster)."""
+    rng = np.random.default_rng(100 * E_c + k)
+    n, B, s = 37, 61, 13
+    cinc, widths = _random_bucket(rng, n, k, E_c)
+    cinc = cinc.to(cuda_device)
+    big = torch.as_tensor(rng.standard_normal((3, k, B, E_c)), dtype=dt,
+                          device=cuda_device)
+    sliced = _check_compress_planar(big[:, :, s:s + n], cinc, widths)
+    whole = _check_compress_planar(big[:, :, s:s + n].contiguous(), cinc,
+                                   widths)
+    assert torch.equal(sliced, whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+def test_compress_planar_edge_cases(cuda_device, dt):
+    """K5b on a bucket whose chunks all have width 0 (zeros out), with a
+    chunk of width 0 between others, with E_c = 2 and 1 (copies narrower
+    than 16 bytes) on an odd row slice, and with one cluster."""
+    rng = np.random.default_rng(11)
+    dev = cuda_device
+    fe3 = torch.as_tensor(rng.standard_normal((3, 10, 70, 32)), dtype=dt,
+                          device=dev)
+    cinc, widths = _random_bucket(rng, 9, 10, 32, widths=[0, 0, 0])
+    assert cinc.shape[1] == 0
+    got = _check_compress_planar(fe3[:, :, 5:14], cinc.to(dev), widths)
+    assert not got.any()
+    cinc, widths = _random_bucket(rng, 9, 10, 32, widths=[5, 0, 3])
+    _check_compress_planar(fe3[:, :, 5:14], cinc.to(dev), widths)
+    for E_c in (2, 1):
+        fe = torch.as_tensor(rng.standard_normal((3, 10, 41, E_c)), dtype=dt,
+                             device=dev)
+        cinc, widths = _random_bucket(rng, 23, 10, E_c, widths=[6])
+        _check_compress_planar(fe[:, :, 3:26], cinc.to(dev), widths)
+    cinc, widths = _random_bucket(rng, 1, 10, 32)
+    _check_compress_planar(fe3[:, :, 69:], cinc.to(dev), widths)
 
 
 @pytest.mark.cuda

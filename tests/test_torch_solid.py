@@ -10,11 +10,14 @@ Small curved meshes of the four types the fused stiffness kernel takes
   tpufem's Pallas kernel in interpret mode on c3d4 to <= 1e-12 in f64,
   and to <= 1e-6 relative in f32: XLA's CPU compiler contracts and
   reorders some of the interpret-mode arithmetic (FMA), so the f32
-  roundings differ (6e-8 measured);
+  roundings differ (2e-7 measured);
+* on c3d4, c3d10 and c3d8 it matches tpufem's Pallas kernel function run
+  eagerly on the block pallas_call would give it, to the same
+  tolerances (bitwise, measured): an interpret-mode call of the unrolled
+  c3d10 or c3d8 kernel takes 120-140 s on the CPU;
 * for c3d10, c3d8 and c3d6 the plain K6 matches tpufem's B^T D B pipeline
-  (the same K, other arithmetic) to <= 1e-12 in f64: an interpret-mode
-  call of the unrolled Pallas kernel takes 35-120 s each on the CPU, and
-  tpufem's own tests hold its kernel against that pipeline.
+  (the same K, other arithmetic) to <= 1e-12 in f64, as tpufem's own
+  tests hold its kernel against that pipeline.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +25,7 @@ import pytest
 import torch
 
 from tpufem.core import voigt as j_voigt
-from tpufem.core.materials import elasticity_matrix
+from tpufem.core.materials import elasticity_matrix, lame_parameters
 from tpufem.elements import solid as js
 from tpufem.ops import stiffness_kernels as jsk
 from tpufem.utils import meshgen
@@ -138,18 +141,70 @@ def test_stiffness_router_takes_plain_k6_on_cpu(mesh):
     assert _rel(full, want) <= 1e-12
 
 
-@pytest.mark.parametrize("np_dt,t_dt,tol", [
-    (np.float64, torch.float64, 1e-12), (np.float32, torch.float32, 1e-6)],
-    ids=["f64", "f32"])
-def test_stiffness_fused_plain_vs_interpret(np_dt, t_dt, tol):
-    """One interpret-mode call of tpufem's Pallas K6 per dtype (c3d4)."""
-    c, conn = _curved("c3d4")
+class _Ref:
+    """A Pallas ref over a numpy buffer: a read gives a jnp array, a write
+    stores into the buffer."""
+
+    def __init__(self, a):
+        self.a, self.dtype = a, a.dtype
+
+    def __getitem__(self, i):
+        return jnp.asarray(self.a[i])
+
+    def __setitem__(self, i, v):
+        self.a[i] = np.asarray(v)
+
+
+def _k6_kernel_body(c, conn, etype):
+    """tpufem's Pallas K6 kernel function (_stiffness_kernel) run eagerly,
+    op by op, on the one [3k, 1, 8, 128] block that stiffness_fused hands
+    its pallas_call for M <= 1024 (element 0 in the padded slots), and its
+    output laid out as stiffness_fused lays it out: K [M, 3k, 3k]."""
+    tab = js.element_table(etype)
+    lam, mu = lame_parameters(E, NU)
+    M, k = conn.shape
+    S, L = 8, 128
+    assert M <= S * L
+    Xe = c[conn]
+    Xe = np.concatenate([Xe, np.broadcast_to(Xe[:1], (S * L - M, k, 3))])
+    xe = np.ascontiguousarray(Xe.reshape(S * L, 3 * k).T).reshape(
+        3 * k, 1, S, L)
+    d = 3 * k
+    out = np.zeros((d * d, 1, S, L), c.dtype)
+    jsk._stiffness_kernel(_Ref(xe), _Ref(out), S=S, L=L, k=k,
+                          dN=np.asarray(tab.dN), w=np.asarray(tab.weights),
+                          lam=float(lam), mu=float(mu))
+    return out.reshape(d * d, S * L).T[:M].reshape(M, d, d)
+
+
+@pytest.mark.parametrize("etype,np_dt,t_dt,tol", [
+    ("c3d4", np.float64, torch.float64, 1e-12),
+    ("c3d4", np.float32, torch.float32, 1e-6),
+    ("c3d10", np.float64, torch.float64, 1e-12),
+    ("c3d10", np.float32, torch.float32, 1e-6),
+    ("c3d8", np.float64, torch.float64, 1e-12),
+    ("c3d8", np.float32, torch.float32, 1e-6)],
+    ids=["f64", "f32", "c3d10-f64", "c3d10-f32", "c3d8-f64", "c3d8-f32"])
+def test_stiffness_fused_plain_vs_interpret(etype, np_dt, t_dt, tol):
+    """The plain K6 against tpufem's Pallas K6 per dtype.  c3d4: one
+    interpret-mode call, and tpufem's kernel function run eagerly
+    (_k6_kernel_body) against it.  c3d10, c3d8: the kernel function run
+    eagerly alone, since an interpret-mode call of their unrolled kernel
+    takes 120-140 s on the CPU, ~24 s of it lowering, whatever the mesh
+    size.  Eager, op by op, no compiler contracts or reorders the
+    arithmetic, so the eager kernel agrees with the plain K6 bitwise in
+    both types (measured); the tolerances are the interpret-mode ones."""
+    c, conn = _curved(etype)
     c = c.astype(np_dt)
-    want = jsk.stiffness_fused(jnp.asarray(c), conn, "c3d4", E, NU,
-                               interpret=True)
-    got = tsk.stiffness_fused_plain(torch.from_numpy(c), conn, "c3d4", E, NU)
+    got = tsk.stiffness_fused_plain(torch.from_numpy(c), conn, etype, E, NU)
     assert got.dtype == t_dt
-    assert _rel(got, want) <= tol
+    body = _k6_kernel_body(c, conn, etype)
+    assert _rel(got, body) <= tol
+    if etype == "c3d4":
+        want = jsk.stiffness_fused(jnp.asarray(c), conn, "c3d4", E, NU,
+                                   interpret=True)
+        assert _rel(got, want) <= tol
+        assert _rel(body, want) <= tol
 
 
 def test_stiffness_fused_checks():

@@ -357,6 +357,8 @@ def compress_planar(fe3: torch.Tensor, cinc: torch.Tensor,
                          ints=(cinc,))
     _check_planar("compress_planar", fe3, fe3.shape, fe3)
     res = _out(out, n, fe3)
+    if n == 0:
+        return res
     COMPRESS_PLANAR.launch(
         "tpufem_compress_planar", int(fe3.dtype == torch.float64),
         cuda.ptr(fe3), fe3.stride(1), k, E_c, cuda.ptr(cinc), cinc.shape[1],

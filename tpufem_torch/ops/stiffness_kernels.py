@@ -14,9 +14,12 @@ its operation order, which the plain version writes out on [M]-vectors:
 
 lam, mu, dN and w are rounded to the working type once.  The kernel is
 built with -fmad=false and rounds the same way, so the two agree bitwise
-on the card.  tpufem writes K entry-major and transposes it in XLA, and
-pads M with copies of element 0; the kernel writes [M, 3k, 3k] row-major
-and masks the ragged edge instead.
+on the card.  Both compute the node pairs k <= l, as tpufem does, and
+copy each 3x3 block to its transposed place.  tpufem writes K entry-major
+and transposes it in XLA, and pads M with copies of element 0; the kernel
+builds a block of elements' [3k, 3k] tiles in shared memory, writes them
+to K row-major in one coalesced run and takes the ragged edge in its last
+block instead.
 """
 from __future__ import annotations
 
@@ -34,7 +37,18 @@ STIFFNESS_FUSED = cuda.CudaKernel(
     "stiffness_fused", "stiffness.cu", "tpufem/ops/stiffness_kernels.py:113",
     {"tpufem_stiffness_fused": [cuda.I32, cuda.I32, cuda.I32, cuda.VP,
                                 cuda.VP, cuda.I64, cuda.VP, cuda.VP,
-                                cuda.F64, cuda.F64, cuda.VP, cuda.VP]})
+                                cuda.F64, cuda.F64, cuda.VP, cuda.VP],
+     "tpufem_stiffness_elems_per_block": [cuda.I32, cuda.I32, cuda.I32]})
+
+
+def elems_per_block(k: int, q: int, dtype) -> int:
+    """Elements per block of the kernel's (k, q) instantiation in dtype
+    (loads the kernel's library, so it needs the CUDA toolkit)."""
+    eb = STIFFNESS_FUSED.lib().tpufem_stiffness_elems_per_block(
+        int(dtype == torch.float64), k, q)
+    if eb <= 0:
+        raise ValueError(f"stiffness_fused: no instantiation for ({k}, {q})")
+    return eb
 
 
 def _inputs(coords, conn, etype, rule, dtype):
@@ -146,9 +160,11 @@ def stiffness_fused(coords, conn, etype: str, E: float, nu: float,
     cuda.check_cuda_args("stiffness_fused", xyz.device, dtype, floats=(xyz,),
                          ints=(cn,))
     M, d = cn.shape[0], 3 * k
-    if M and (int(cn.min()) < 0 or int(cn.max()) >= xyz.shape[0]):
-        raise ValueError("stiffness_fused: connectivity outside the nodes")
     out = torch.empty((M, d, d), dtype=dtype, device=xyz.device)
+    if M == 0:
+        return out
+    if int(cn.min()) < 0 or int(cn.max()) >= xyz.shape[0]:
+        raise ValueError("stiffness_fused: connectivity outside the nodes")
     dn = np.ascontiguousarray(table.dN, np.float64).reshape(-1)
     wt = np.ascontiguousarray(table.weights, np.float64)
     lam, mu = lame_parameters(E, nu)
