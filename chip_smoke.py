@@ -2,12 +2,15 @@
 """Drive tpufem_torch's three ported paths and its three probes on one
 CUDA card: the refined packed c3d10 solve, the assembled-stiffness static
 solve, the staged packed pipeline under the block-Jacobi refined solve,
-and the relayout, row-read and planar-I/O probes.
+the relayout, row-read and planar-I/O probes, and the converged refined
+solve at tpufem's largest size.  Every PCG solve runs its 32-iteration
+blocks as CUDA graphs (solvers.cg.CGBlock).
 
-    python3 chip_smoke.py            # box_tet10(55): 1.00M elements, 4.1M DOF
-    python3 chip_smoke.py --n 10     # a quick check at 6k elements
+    python3 chip_smoke.py            # box_tet10(55): 1.00M elements, 4.1M
+                                     # DOF; phase 11 at box_tet10(119)
+    python3 chip_smoke.py --n 10 --scale-n 20   # a quick check
     python3 chip_smoke.py --phases staged   # some paths (packed, static,
-                                            # staged, probes)
+                                            # staged, probes, scale)
     python3 chip_smoke.py --phases turns    # K6, K5b and K3 alone (run
                         # from copies of two trees in turns to compare them)
 
@@ -31,15 +34,20 @@ printed):
      version from CUDA events (the kernel's includes the gaps while the
      host launches), beside the least time the card could take;
   5. main path, with every launch count set to 0 first: Jacobi system,
-     f64 refinement, the refined solve (scripts/solve_scale.py's settings);
-     fails unless the f64 true relative residual is <= 1e-6, the tip
-     deflection is finite and negative, and every kernel launched;
+     f64 refinement, the refined solve (scripts/solve_scale.py's settings),
+     its PCG blocks replayed as CUDA graphs; fails unless the f64 true
+     relative residual is <= 1e-6, the tip deflection is finite and
+     negative, every kernel launched, and fused_yc and combine were
+     launched by graph replays (each replay adds the launches its capture
+     recorded);
   6. the operator-apply time (median of >= 20 applies) and each kernel's
      launches per apply; the f32 kernel operator against the independent
      f64 operator on the whole mesh, and the f64 operator's time;
-  7. torch.profiler: a window of 100 PCG iterations (device time per
-     iteration by kernel, and the device's busy share of the wall time,
-     the median host clock of five unprofiled windows),
+  7. torch.profiler: a window of 100 PCG iterations through the CUDA
+     graphs, and the same window with the blocks run eagerly (device time
+     per iteration by kernel, the device's busy share of the wall time,
+     the median host clock of five unprofiled windows, and host over
+     device for both),
      then each kernel's device time per sweep, the "ms" of the JSON line;
      K1's sweep against the K4 expand + K3 compress_gather sweeps on the
      same tables, six profiler windows each taken in turns (min, median,
@@ -70,7 +78,8 @@ printed):
       static_structure_solver(operator="clustered", f64, Jacobi, tol
       1e-6 ||b||); fails unless the status is CONVERGED, the F64Operator
       true relative residual is <= 1e-6, the tip deflection is finite and
-      negative, and K6, K7a and K7b all launched;
+      negative, K6, K7a and K7b all launched, and K7a and K7b by graph
+      replays;
   8f. torch.profiler over a window of 20 of its PCG iterations (the
       median host clock of five unprofiled windows beside it).
   The staged packed pipeline (same mesh, plan and load; f32 operator with
@@ -90,7 +99,8 @@ printed):
       (precondition="block") under RefinedSystem, the settings of phase 5;
       fails unless the f64 true relative residual is <= 1e-6, the tip
       deflection is finite, negative and within 1e-4 (relative) of phase
-      5's, and expand, compress_gather and combine all launched;
+      5's, and expand, compress_gather and combine all launched, each by
+      graph replays;
   9d. device and host-clock ms per apply of the staged, planar and fused
       pipelines and of the element math (pa_apply_planar) alone;
       torch.profiler over 20 block-Jacobi PCG iterations; each new
@@ -117,6 +127,17 @@ printed):
        the permuted view's contiguous(), copy_ into a zeroed output; for
        row_accumulate also every indexed row from memory, and in the log
        an estimate: that less the share of the source the L2 holds.
+  The converged solve at scale:
+  11. tpufem_torch.scripts.solve_scale's flow at box_tet10(--scale-n,
+      default 119: 10.11M elements, 41M DOF) from a fresh build, without
+      its cache, scalar Jacobi, every count 0 first:
+      each setup stage (mesh, plan, operator geometry, system, refinement
+      geometry, graph capture), the solve seconds, cycles, inner
+      iterations and outer history beside tpufem's record, the f64 true
+      relative residual, the peak device memory, the tip deflection and
+      K1-K3's launches (K1, K2 by graph replays); fails above 1e-6, at a
+      cycle count other than 3, on a tip that is not finite and negative,
+      or on a kernel with no launch.
   With --phases turns (not in the default): the timings of 8d (K6) and
   9d (K5b in turns with K3), by the same helpers, on box_tet10(n) alone.
   For before/after figures, copy this
@@ -379,6 +400,7 @@ def packed_phase(args, dev):
     mean."""
     import tpufem_torch as tt
     from tpufem_torch.ops import fused_kernels as fk, packed_kernels as pk
+    from tpufem_torch.solvers.cg import CGBlock
 
     # 3. setup
     n = args.n
@@ -483,7 +505,7 @@ def packed_phase(args, dev):
     b = np.zeros((N, 3), np.float32)
     b[top, 2] = -1e3
     for K in tt.PACKED_KERNELS:
-        K.launches = 0
+        K.launches = K.replayed = 0
     t0 = time.perf_counter()
     system = tt.PackedSystem(op, fixed_nodes=fixed, precondition="jacobi")
     ref = tt.RefinedSystem(system, coords, conn, "c3d10", E, NU)
@@ -500,12 +522,14 @@ def packed_phase(args, dev):
     launches = {K.name: K.launches for K in tt.PACKED_KERNELS}
     uz = u.reshape(N, 3)[torch.as_tensor(top, device=dev).long(), 2]
     tip = float(uz.mean())
+    replayed = {K.name: K.replayed for K in tt.PACKED_KERNELS}
     log(f"main path: system+refinement setup {t_setup:.2f} s, solve "
         f"{t_solve:.2f} s, cycles {info.cycles}, inner iterations "
         f"{info.inner_iterations}, outer history (rel) "
         f"{[float(h / info.outer_history[0]) for h in info.outer_history]}, "
         f"f64 true rel residual {info.rel_residual:.3e}, tip uz mean "
-        f"{tip:.6e}, launches {launches}")
+        f"{tip:.6e}, launches {launches} (of them by CUDA graph replays "
+        f"{replayed})")
     if not info.rel_residual <= 1e-6:
         fail(f"f64 true relative residual {info.rel_residual:.3e} > 1e-6")
     if not (np.isfinite(tip) and tip < 0):
@@ -513,6 +537,9 @@ def packed_phase(args, dev):
     for name, c in launches.items():
         if c <= 0:
             fail(f"kernel {name} was not launched on the main path")
+    for name in ("fused_yc", "combine"):
+        if replayed[name] <= 0:
+            fail(f"kernel {name} was not launched by a CUDA graph replay")
 
     # 6. apply time, launches per apply, kernel operator vs f64 operator
     X0 = plan.pack_flat(u.to(torch.float32))
@@ -536,33 +563,53 @@ def packed_phase(args, dev):
 
     # 7. device time from torch.profiler, last: a profiler leaves the
     # host's later launches slower.  A PCG window of the main path's chunk
-    # solve (tol 0: every iteration runs), then each kernel's sweep.
+    # solve (tol 0: every iteration runs) through its CUDA graphs, and the
+    # same window with the blocks run eagerly (op by op, as before the
+    # graphs); then each kernel's sweep.
     iters = 100
     bX = plan.pack(torch.as_tensor(b, device=dev))
     bX = bX / torch.linalg.norm(bX)
+    eager = CGBlock(system.op, bX, constraints=system.pc,
+                    M_inv=system.M_inv, tol=0.0)
+    eager.graphed = False            # for the comparison only
 
     def pcg():
         system.solve_chunked_packed(bX, tol=0.0, max_iter=iters, every=iters)
 
-    pcg()
-    walls = host_windows(pcg)
-    wall_ms = statistics.median(walls)
-    prof = device_times(pcg, 1)
-    if not prof:
-        fail("torch.profiler recorded no device time")
-    dev_ms = sum(r[1] for r in prof)
-    by = {K.name: sum(r[1] for r in prof if f"{K.name}_kernel" in r[0])
-          for K in tt.PACKED_KERNELS}
-    by["other"] = dev_ms - sum(by.values())
-    log(f"profile: {iters} PCG iterations, {wall_ms / iters:.4f} ms per "
-        f"iteration (host clock, unprofiled, median of {len(walls)} windows;"
-        f" {fmt_spread(spread([w / iters for w in walls]))}); device "
-        f"{dev_ms / iters:.4f} ms per iteration, busy {dev_ms / wall_ms:.1%};"
-        f" device ms per iteration by kernel "
-        f"{ {k: round(v / iters, 4) for k, v in by.items()} }")
-    for name, ms, count in prof[:8]:
-        log(f"  {ms / iters:.4f} ms/it  {count / iters:.1f} launches/it  "
-            f"{name[:90]}")
+    def pcg_eager():
+        eager.solve(system.pc.project_residual(bX), max_iter=iters)
+
+    window = {}
+    for label, fn in (("graphs", pcg), ("eager", pcg_eager)):
+        fn()
+        walls = host_windows(fn)
+        wall_ms = statistics.median(walls)
+        prof = device_times(fn, 1)
+        if not prof:
+            fail(f"torch.profiler recorded no device time ({label})")
+        dev_ms = sum(r[1] for r in prof)
+        by = {K.name: sum(r[1] for r in prof if f"{K.name}_kernel" in r[0])
+              for K in tt.PACKED_KERNELS}
+        by["other"] = dev_ms - sum(by.values())
+        window[label] = (wall_ms / iters, dev_ms / iters)
+        log(f"profile ({label}): {iters} PCG iterations, "
+            f"{wall_ms / iters:.4f} ms per iteration (host clock, "
+            f"unprofiled, median of {len(walls)} windows; "
+            f"{fmt_spread(spread([w / iters for w in walls]))}); device "
+            f"{dev_ms / iters:.4f} ms per iteration, busy "
+            f"{dev_ms / wall_ms:.1%}; device ms per iteration by kernel "
+            f"{ {k: round(v / iters, 4) for k, v in by.items()} }")
+        for name, ms, count in prof[:8]:
+            log(f"  {ms / iters:.4f} ms/it  {count / iters:.1f} "
+                f"launches/it  {name[:90]}")
+        if by["fused_yc"] <= 0:
+            fail(f"torch.profiler recorded no fused_yc in the {label} "
+                 f"PCG window")
+    (hg, dg), (he, de) = window["graphs"], window["eager"]
+    log(f"PCG window: with CUDA graphs host {hg:.4f} ms per iteration, "
+        f"device {dg:.4f} (host/device {hg / dg:.3f}); eager host "
+        f"{he:.4f}, device {de:.4f} (host/device {he / de:.3f})")
+    del eager
     kernel_ms = {}
     for K in tt.PACKED_KERNELS[2:]:        # K1, K2: in turns below
         rows_k = device_times(sweep(K.name), args.reps)
@@ -798,6 +845,7 @@ def static_phase(args, dev, tip_packed):
     """The assembled-stiffness static solve (phase 8 of the module
     docstring).  Returns its {"kernels"} rows."""
     import tpufem_torch as tt
+    from tpufem_torch.solvers.cg import CGBlock
     from tpufem_torch.ops import cluster_kernels as ck
     from tpufem_torch.ops import stiffness_kernels as sk
 
@@ -1047,7 +1095,7 @@ def static_phase(args, dev, tip_packed):
     material = {"E": E, "nu": NU}
     torch.cuda.reset_peak_memory_stats(dev)
     for K in tt.KERNELS:
-        K.launches = 0
+        K.launches = K.replayed = 0
     timings = {}
     t0 = time.perf_counter()
     u6, info = tt.static_structure_solver(
@@ -1081,7 +1129,9 @@ def static_phase(args, dev, tip_packed):
         f"({timings['solve'] / max(iters, 1) * 1e3:.3f} ms per iteration, "
         f"derived), entry point {t_total:.2f} s; peak device memory "
         f"{peak_gb:.2f} GB; tip uz mean {tip:.6e} (refined packed solve "
-        f"{tip_packed}, rel diff {tip_d:.2e}); launches {launches}")
+        f"{tip_packed}, rel diff {tip_d:.2e}); launches {launches} (of "
+        f"them by CUDA graph replays "
+        f"{ {K.name: K.replayed for K in tt.STATIC_KERNELS} })")
     if status != 1:
         fail(f"static solve status {status} (1 = CONVERGED)")
     if not true_rel <= 1e-6:
@@ -1091,6 +1141,10 @@ def static_phase(args, dev, tip_packed):
     for name, c in launches.items():
         if c <= 0:
             fail(f"kernel {name} was not launched on the static path")
+    for K in (tt.CLUSTER_EXPAND, tt.CLUSTER_COMPRESS):
+        if K.replayed <= 0:
+            fail(f"kernel {K.name} was not launched by a CUDA graph replay "
+                 f"on the static path")
     del u6, u3, r, b3, mask
 
     # 8f. where a solve iteration's time goes: a profiled window of 20 PCG
@@ -1103,10 +1157,11 @@ def static_phase(args, dev, tip_packed):
     Minv = model.jacobi_preconditioner(d6)
     cons = tt.Constraints.fixed(N, fixed, 6)
     iters_w = 20
+    # one CGBlock for every window, so that its graphs are captured once
+    blk = CGBlock(model, b6, constraints=cons, M_inv=Minv, tol=0.0)
 
     def pcg():
-        tt.cg(model, b6 * live, constraints=cons, M_inv=Minv, tol=0.0,
-              max_iter=iters_w)
+        blk.solve(b6 * live, max_iter=iters_w)
 
     pcg()
     walls = host_windows(pcg)
@@ -1126,7 +1181,7 @@ def static_phase(args, dev, tip_packed):
         K.launches = 0
     model(b6)
     per_apply = {K.name: K.launches for K in tt.STATIC_KERNELS}
-    del model
+    del model, blk
 
     rows = []
     for K in tt.STATIC_KERNELS:
@@ -1365,7 +1420,7 @@ def staged_phase(args, dev, ctx, tip_fused):
     b = np.zeros((N, 3), np.float32)
     b[top, 2] = -1e3
     for K in tt.KERNELS:
-        K.launches = 0
+        K.launches = K.replayed = 0
     t0 = time.perf_counter()
     system = tt.PackedSystem(staged, fixed_nodes=fixed, precondition="block")
     torch.cuda.synchronize()
@@ -1394,7 +1449,8 @@ def staged_phase(args, dev, ctx, tip_fused):
         f"{[float(h / info.outer_history[0]) for h in info.outer_history]}, "
         f"f64 true rel residual {info.rel_residual:.3e}, tip uz mean "
         f"{tip:.6e} (fused Jacobi solve {tip_fused}, rel diff {tip_d:.2e}); "
-        f"launches {launches}")
+        f"launches {launches} (of them by CUDA graph replays "
+        f"{ {K.name: K.replayed for K in tt.KERNELS if K.replayed} })")
     if not info.rel_residual <= 1e-6:
         fail(f"staged solve: f64 true relative residual "
              f"{info.rel_residual:.3e} > 1e-6")
@@ -1406,6 +1462,10 @@ def staged_phase(args, dev, ctx, tip_fused):
     for name in ("expand", "compress_gather", "combine"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the staged path")
+    for K in (tt.EXPAND, tt.COMPRESS_GATHER, tt.COMBINE):
+        if K.replayed <= 0:
+            fail(f"kernel {K.name} was not launched by a CUDA graph replay "
+                 f"on the staged path")
     del u
 
     # 9d. times: one apply of each pipeline; the element math's share;
@@ -1748,18 +1808,101 @@ def turns_phase(args, dev):
     return []
 
 
+# tpufem's record of the converged refined solve (PERFORMANCE.md:11-15):
+# cycles, inner iterations, f64 true relative residual; no time of it is
+# used here
+TPUFEM_RECORD = {55: (3, 2454, 3.7e-7), 95: (3, 3130, 5.2e-7),
+                 119: (3, 4137, 3.1e-7)}
+
+
+def scale_phase(args, dev):
+    """The converged refined solve at tpufem's sizes (phase 11 of the
+    module docstring): tpufem_torch.scripts.solve_scale's flow from a
+    fresh build, without its cache.  Returns the launches of K1-K3."""
+    import tpufem_torch as tt
+    from tpufem_torch.ops import fused_kernels as fk, packed_kernels as pk
+    from tpufem_torch.scripts import solve_scale
+
+    n = args.scale_n
+    for K in tt.KERNELS:
+        K.launches = K.replayed = 0
+    # scalar Jacobi: tpufem's record at these sizes is scalar Jacobi's
+    # (PERF.md; solve_scale's own argument runs block Jacobi)
+    out, system, u = solve_scale.run(n, "jacobi", 1e-6, cache=False,
+                                     device=dev, log=log)
+    launches = {K.name: K.launches for K in tt.PACKED_KERNELS}
+    replayed = {K.name: K.replayed for K in tt.PACKED_KERNELS}
+    rec = TPUFEM_RECORD.get(n)
+    log(f"scale: box_tet10({n}) {out['elements']} elements, {out['nodes']} "
+        f"nodes, precondition {out['precondition']}, every {out['every']}; "
+        f"setup {out['setup_seconds']:.2f} s "
+        f"({ {k: round(v, 3) for k, v in out['setup_stages'].items()} }); "
+        f"solve {out['solve_seconds']:.2f} s, cycles {out['cycles']}, inner "
+        f"iterations {out['iterations']} "
+        f"({out['solve_seconds'] / max(out['iterations'], 1) * 1e3:.3f} ms "
+        f"each, derived), outer history (rel) {out['outer_history_rel']}, "
+        f"f64 true rel residual {out['rel_residual']:.3e}; tpufem's record "
+        f"(cycles, inner iterations, residual): {rec}; peak device memory "
+        f"{out['max_memory_allocated'] / 1e9:.2f} GB; tip uz mean "
+        f"{out['tip_uz_mean']:.6e}, min {out['tip_uz_min']:.6e}; launches "
+        f"{launches} (of them by CUDA graph replays {replayed})")
+    if not out["rel_residual"] <= 1e-6:
+        fail(f"scale: f64 true relative residual {out['rel_residual']:.3e} "
+             f"> 1e-6")
+    if out["cycles"] != 3:
+        fail(f"scale: {out['cycles']} refinement cycles, not 3")
+    tip = out["tip_uz_mean"]
+    if not (np.isfinite(tip) and tip < 0):
+        fail(f"scale: tip uz mean {tip} is not finite and negative")
+    for name, c in launches.items():
+        if c <= 0:
+            fail(f"scale: kernel {name} was not launched")
+    for name in ("fused_yc", "combine"):
+        if replayed[name] <= 0:
+            fail(f"scale: kernel {name} was not launched by a CUDA graph "
+                 f"replay")
+
+    # K1-K3 at this plan's sizes, on its real tables, against their plain
+    # versions (after the counts were read): the operator applied once to
+    # the solution, K1 then K2 each on the same input as its plain
+    # version; and the Jacobi diagonal with K3 against it with K3's plain
+    # version (K2 in both).  Bitwise, as phase 4 holds them at --n.
+    op = system.op
+    uX = op.plan.pack(u.reshape(-1, 3).float())
+    Yc = op.fused_stage(uX)
+    checks = (
+        ("fused_yc", Yc, op.fused_stage(uX, kernel=fk.fused_yc_plain)),
+        ("combine", op.combine_stage(Yc),
+         op.combine_stage(Yc, kernel=pk.combine_plain)),
+        ("compress_gather", op.diagonal(),
+         op.diagonal(compress=pk.compress_gather_plain)))
+    for name, got, want in checks:
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            fail(f"scale: {name} differs from its plain version at "
+                 f"box_tet10({n}): max |d| {err:.3e} (max |ref| "
+                 f"{float(want.abs().max()):.3e})")
+        log(f"scale parity {name}: bitwise equal to its plain version on "
+            f"{tuple(got.shape)} (max |ref| {float(want.abs().max()):.3e})")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=55,
                     help="box_tet10(n, n, n): 6 n^3 c3d10 elements")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--phases", default="packed,static,staged,probes",
+    ap.add_argument("--phases", default="packed,static,staged,probes,scale",
                     help="comma-separated subset of packed, static, staged, "
-                    "probes, turns")
+                    "probes, scale, turns")
+    ap.add_argument("--scale-n", type=int, default=119,
+                    help="phase 11's mesh: box_tet10(n, n, n)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
-    if not phases <= {"packed", "static", "staged", "probes", "turns"}:
+    if not phases <= {"packed", "static", "staged", "probes", "scale",
+                      "turns"}:
         ap.error(f"unknown phases {phases}")
 
     if not torch.cuda.is_available():
@@ -1828,6 +1971,15 @@ def main() -> None:
         t0 = time.perf_counter()
         rows += turns_phase(args, dev)
         log(f"phase turns: {time.perf_counter() - t0:.1f} s")
+    if "scale" in phases:
+        del ctx
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        scale_launches = scale_phase(args, dev)
+        for r in rows:
+            if r["name"] in scale_launches:
+                r["scale_launches"] = scale_launches[r["name"]]
+        log(f"phase scale: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -694,3 +694,183 @@ def test_probe_mains_on_card(cuda_device):
     res = probe_planar_io.main()
     assert res["write_err"] == res["read_err"] == 0.0
     assert set(res["ms"]) == {5, 45}
+
+
+# ---------------------------------------------------------------------------
+# the PCG blocks as CUDA graphs; the f64 refinement operator on the card
+# ---------------------------------------------------------------------------
+
+def _graph_system(dev, dt, precond="jacobi", sets=False):
+    """box_tet10(4): the base fixed, or tpufem's constrained workload (SPC
+    with a value, an RBE2 and an RBE3 set on the top face); a unit-norm
+    packed load on the top face."""
+    mg = tpufem_torch.meshgen
+    coords, conn = mg.box_tet10(4, 4, 4)
+    N = coords.shape[0]
+    base = mg.boundary_nodes(coords, 2, 0.0)
+    top = mg.boundary_nodes(coords, 2, 1.0)
+    if sets:
+        spc = [{"node": int(n), "dofs": [0, 1, 2], "value": 0.0}
+               for n in base[:-2]]
+        spc += [{"node": int(base[-2]), "dofs": [2], "value": 1e-4}]
+        cons = tpufem_torch.Constraints.build(
+            N, 3, spc,
+            [{"master": int(top[0]), "slaves": [int(t) for t in top[1:4]],
+              "dofs": [0, 1, 2]}],
+            [{"master": int(top[-1]), "slaves": [int(t) for t in top[4:8]],
+              "dofs": [0, 1, 2], "weights": [1.0, 2.0, 1.0, 0.5]}])
+    else:
+        cons = tpufem_torch.Constraints.fixed(N, base, 3)
+    op = tpufem_torch.PackedPartialOperator.build(
+        coords, conn, "c3d10", E, NU, n_nodes=N, dtype=dt, device=dev)
+    system = tpufem_torch.PackedSystem(op, constraints=cons,
+                                       precondition=precond)
+    b = np.zeros((N, 3))
+    b[top, 0], b[top, 2] = 2e3, -1e3
+    bX = system.pc.project_residual(op.plan.pack(torch.as_tensor(
+        b / np.linalg.norm(b), dtype=dt, device=dev)))
+    return system, bX
+
+
+def _same_cg(a, b):
+    assert torch.equal(a[0], b[0])
+    for x, y in zip(a[1], b[1]):
+        assert torch.equal(x, y)
+    assert torch.equal(a[2][0], b[2][0]) and torch.equal(a[2][1], b[2][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("precond", ["jacobi", "block"])
+@pytest.mark.parametrize("sets", [False, True], ids=["fixed", "sets"])
+def test_graph_replay_bitwise_vs_eager(cuda_device, dt, precond, sets):
+    """70 PCG iterations (two 32-iteration graphs and one of 6) replayed
+    against the same block run eagerly: iterate, history, status, count
+    and resume state bitwise; a second call replays the same graphs."""
+    from tpufem_torch.solvers.cg import CGBlock
+    system, bX = _graph_system(cuda_device, dt, precond, sets)
+    mk = dict(constraints=system.pc, M_inv=system.M_inv, tol=0.0)
+    kw = dict(max_iter=70, return_state=True)
+    eager = CGBlock(system.op, bX, **mk)
+    eager.graphed = False
+    want = eager.solve(bX, **kw)
+    blk = CGBlock(system.op, bX, **mk)
+    assert blk.graphed
+    _same_cg(blk.solve(bX, **kw), want)
+    assert set(blk.graphs) == {32, 6}
+    _same_cg(blk.solve(bX, **kw), want)
+    assert bool(torch.isfinite(want[1].history).all())
+
+
+@pytest.mark.cuda
+def test_graph_launch_counts(cuda_device):
+    """A capture launches nothing and keeps the counts; each replay adds
+    the capture's launches (32 applies: K1 per cluster bucket, K2 once)."""
+    from tpufem_torch.ops import cuda as tcu
+    system, bX = _graph_system(cuda_device, torch.float32)
+    c_buckets = sum(1 for (_, n, wk) in system.op.plan.meta.c_groups
+                    if n and wk)
+    blk = system._block(0.0, None)
+    for t in (blk.state.u, blk.state.r, blk.state.p):
+        t.copy_(bX)
+    blk.state.rz.fill_(1.0)
+    blk.state.status.zero_()
+    before = [K.launches for K in tcu.REGISTRY]
+    blk.capture(32)
+    assert [K.launches for K in tcu.REGISTRY] == before
+    counts = {K.name: n for K, n in blk.graphs[32].counts}
+    assert counts == {"fused_yc": 32 * c_buckets, "combine": 32}
+    for reps in (1, 2, 3):
+        k1, k2 = tfk.FUSED_YC.launches, tpk.COMBINE.launches
+        r1 = tfk.FUSED_YC.replayed
+        for _ in range(reps):
+            blk.run(32)
+        torch.cuda.synchronize()
+        assert tfk.FUSED_YC.launches - k1 == reps * counts["fused_yc"]
+        assert tfk.FUSED_YC.replayed - r1 == reps * counts["fused_yc"]
+        assert tpk.COMBINE.launches - k2 == reps * 32
+
+
+@pytest.mark.cuda
+def test_warm_chunked_runs_no_kernel(cuda_device):
+    """warm_chunked captures the chunk's blocks (32 and every % 32) and
+    launches nothing; the chunked solve then equals an unwarmed system's
+    bitwise."""
+    from tpufem_torch.ops import cuda as tcu
+    system, bX = _graph_system(cuda_device, torch.float32)
+    before = [K.launches for K in tcu.REGISTRY]
+    system.warm_chunked(None, tol=1e-4, every=50)
+    torch.cuda.synchronize()
+    assert [K.launches for K in tcu.REGISTRY] == before
+    assert set(system._blocks[(1e-4, "None")].graphs) == {32, 18}
+    u, info = system.solve_chunked_packed(bX, tol=1e-4, every=50,
+                                          max_iter=2000)
+    other, _ = _graph_system(cuda_device, torch.float32)
+    u2, info2 = other.solve_chunked_packed(bX, tol=1e-4, every=50,
+                                           max_iter=2000)
+    assert int(info.status) == int(info2.status) == 1
+    assert int(info.iterations) == int(info2.iterations) > 50
+    assert torch.equal(u, u2)
+
+
+@pytest.mark.cuda
+def test_refine_geometry_on_card(cuda_device):
+    """F64Operator's geometry and incidence computed on the card against
+    the host numpy version (1e-14 relative, 1 ulp after rounding to f32;
+    the incidence equal), its node-range sum bitwise equal to the single
+    gather, and its apply against the CPU's to 1e-12."""
+    from tpufem_torch.elements.tables import element_table
+    from tpufem_torch.solvers import refine as trf
+    coords, conn = tpufem_torch.meshgen.box_tet10(6, 6, 6)
+    coords = coords + 0.02 * np.sin(3.0 * coords[:, [1, 2, 0]])
+    N = coords.shape[0]
+    table = element_table("c3d10", "default")
+    dN = np.asarray(table.dN, np.float64)
+    w = np.asarray(table.weights, np.float64)
+    Jh, Wh = trf._host_geometry(coords, conn, dN, w)
+    Jd, Wd = trf.device_geometry(
+        torch.as_tensor(coords, device=cuda_device),
+        torch.as_tensor(conn, device=cuda_device).long(),
+        torch.as_tensor(dN, device=cuda_device),
+        torch.as_tensor(w, device=cuda_device))
+    for d, h in ((Jd.cpu().numpy(), Jh), (Wd.cpu().numpy(), Wh)):
+        assert d.shape == h.shape
+        assert np.abs(d - h).max() <= 1e-14 * np.abs(h).max()
+        d32, h32 = d.astype(np.float32), h.astype(np.float32)
+        assert np.abs(d32.view(np.int32).astype(np.int64)
+                      - h32.view(np.int32).astype(np.int64)).max() <= 1
+    inc_d = trf.incidence(torch.as_tensor(conn, device=cuda_device), N)
+    inc_c = trf.incidence(torch.as_tensor(conn), N)
+    assert inc_d.dtype == torch.int32 and torch.equal(inc_d.cpu(), inc_c)
+    u = torch.as_tensor(np.random.default_rng(9).standard_normal(3 * N))
+    kw = dict(chunk_elems=500)
+    op = trf.F64Operator(coords, conn, "c3d10", E, NU, device=cuda_device,
+                         **kw)
+    op.node_chunk = N
+    F = op(u.to(cuda_device))
+    op.node_chunk = 1000
+    assert torch.equal(op(u.to(cuda_device)), F)
+    Fc = trf.F64Operator(coords, conn, "c3d10", E, NU, device="cpu", **kw)(u)
+    assert float((F.cpu() - Fc).abs().max()) <= 1e-12 * float(Fc.abs().max())
+
+
+@pytest.mark.cuda
+def test_graph_capture_failure_raises(cuda_device):
+    """A block that reads a value on the host cannot be captured: the
+    capture raises (nothing runs eagerly instead) and the launch counts
+    stay as they were.  (Last in the file: a failed capture is left to
+    the process's end.)"""
+    from tpufem_torch.ops import cuda as tcu
+    from tpufem_torch.solvers.cg import CGBlock
+    system, bX = _graph_system(cuda_device, torch.float32)
+
+    def syncing(x):
+        float(x.sum())
+        return system.op(x)
+
+    blk = CGBlock(syncing, bX, constraints=system.pc, M_inv=system.M_inv)
+    before = [K.launches for K in tcu.REGISTRY]
+    with pytest.raises(RuntimeError):
+        blk.capture(32)
+    assert [K.launches for K in tcu.REGISTRY] == before
+    assert not blk.graphs

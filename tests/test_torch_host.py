@@ -139,6 +139,8 @@ _ALL_MODULES = [
     "tpufem_torch.solvers.static", "tpufem_torch.ops.probe_fused",
     "tpufem_torch.ops.probe_kernels", "tpufem_torch.ops.probe_reshape",
     "tpufem_torch.ops.probe_rowdma", "tpufem_torch.ops.probe_planar_io",
+    "tpufem_torch.scripts", "tpufem_torch.scripts.solve_scale",
+    "tpufem_torch.examples", "tpufem_torch.examples.refined_solve",
 ]
 
 

@@ -80,7 +80,7 @@ def test_static_model_parts(problem):
 
 def test_unported_paths_raise(problem):
     coords, conn, fixed, force, _ = problem
-    for kw, err in ((dict(c3d10=conn, operator="packed"),
+    for kw, err in ((dict(c3d10=conn, c3d4=conn[:, :4], operator="packed"),
                      NotImplementedError),
                     (dict(c3d10=conn, operator="partial"),
                      NotImplementedError),

@@ -5,8 +5,10 @@ kernels:
 
 * the refined packed solve: box meshes, the packed plan, the matrix-free
   partial-assembly operator (kernels fused_yc, combine, compress_gather),
-  Jacobi PCG with chunked exact resume, and the f64 iterative-refinement
-  outer loop;
+  SPC/RBE2/RBE3 constraints, Jacobi PCG with chunked exact resume, and
+  the f64 iterative-refinement outer loop; tpufem's script at 5-10M
+  elements (``python -m tpufem_torch.scripts.solve_scale``) and its
+  example (``python -m tpufem_torch.examples.refined_solve``);
 * the staged packed pipeline (fuse="", any elems_per_cluster: kernels
   expand, compress_gather, combine around the planar element math) under
   block-Jacobi PCG (block_diagonal, BlockJacobi) and the same refinement;
@@ -21,6 +23,9 @@ kernels:
   reads against a gather (ops.probe_rowdma; kernel row_accumulate) and
   the planar element layout's write and read (ops.probe_planar_io;
   kernels planar_write, planar_read).
+
+Every PCG solve runs its loop in 32-iteration blocks that the card
+replays as CUDA graphs (solvers.cg.CGBlock).
 
 The JAX package ``tpufem`` stays the reference; nothing here imports it.
 Entry points (the plans' and operators' build functions, PackedSystem,

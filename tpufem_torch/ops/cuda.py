@@ -8,6 +8,9 @@ kernel runs on PyTorch's current stream.  The library is named after its
 source and carries a hash of the sources and flags, so an edited source is
 rebuilt.  ``build()`` starts one ``nvcc`` per source, all at once.
 
+``Graph`` captures a callable once as a CUDA graph and replays it, and
+keeps the kernels' launch counts: a replay adds what the capture launched.
+
 Nothing here imports or compiles anything when the module is imported: the
 CPU tests import every module on a machine without ``nvcc``.
 """
@@ -48,12 +51,18 @@ def nvcc_path() -> str:
                        "toolkit (set NVCC to its path)")
 
 
+# every CudaKernel, in the order they were made (Graph counts over these)
+REGISTRY: List["CudaKernel"] = []
+
+
 class CudaKernel:
     """One kernel: its source, its build, its C entry points and a launch
     count.
 
     ``launches`` is a plain integer that the kernel's wrapper raises by one
-    at each launch, and nowhere else."""
+    at each launch (and a Graph by its captured launches at each replay),
+    and nowhere else; ``replayed`` counts the launches of graph replays
+    alone."""
 
     def __init__(self, name: str, source: str, replaces: str,
                  entry_points: Dict[str, list]):
@@ -62,7 +71,9 @@ class CudaKernel:
         self.replaces = replaces              # tpufem file:line of the TPU kernel
         self.entry_points = entry_points      # C name -> ctypes argtypes
         self.launches = 0
+        self.replayed = 0
         self._lib: Optional[ctypes.CDLL] = None
+        REGISTRY.append(self)
 
     @property
     def source_path(self) -> str:
@@ -181,3 +192,35 @@ def check_cuda_args(name: str, device: torch.device, float_dtype,
                             f"got {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: int operand not contiguous")
+
+
+class Graph:
+    """`fn` captured once as a CUDA graph (torch.cuda.graph, on the current
+    device; `pool` shares another graph's memory pool) and replayed.
+
+    Capturing runs nothing, so the launches that the kernels' wrappers
+    counted during the capture are taken back and kept as the graph's
+    own counts; each replay adds them to the kernels' counts.  A capture
+    that fails raises."""
+
+    def __init__(self, fn, pool=None):
+        before = [k.launches for k in REGISTRY]
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool):
+                fn()
+        finally:
+            self.counts = [(k, k.launches - n)
+                           for k, n in zip(REGISTRY, before)
+                           if k.launches != n]
+            for k, n in zip(REGISTRY, before):
+                k.launches = n
+
+    def pool(self):
+        return self.graph.pool()
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, n in self.counts:
+            k.launches += n
+            k.replayed += n

@@ -28,7 +28,6 @@ compare bitwise with tpufem's and operator results agree to roundoff.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import json
 import os
 from typing import Dict, Optional, Tuple
@@ -183,13 +182,16 @@ class PackedPlan:
     def device(self) -> torch.device:
         return self.lconn.device
 
-    @functools.cached_property
-    def row_wk(self) -> torch.Tensor:
-        """[Nb] int32: the combine window width of each node-block row, its
-        block bucket's width cut after its last real window (winc < B).
-        The windows cut are padding, which adds nothing, so combine over
-        these widths equals combine bucket by bucket; built once, on the
-        plan's device."""
+    def __post_init__(self):
+        # built with the plan, never at first use (which may be inside a
+        # CUDA graph capture, where no table can be made)
+        object.__setattr__(self, "row_wk", self._row_widths())
+
+    def _row_widths(self) -> torch.Tensor:
+        """row_wk, [Nb] int32: the combine window width of each node-block
+        row, its block bucket's width cut after its last real window
+        (winc < B).  The windows cut are padding, which adds nothing, so
+        combine over these widths equals combine bucket by bucket."""
         m = self.meta
         bucket = torch.zeros(m.n_blocks, dtype=torch.long, device=self.device)
         for (s, n, wk) in m.b_groups:
@@ -953,12 +955,13 @@ class PackedPartialOperator(torch.nn.Module):
         Yc = self.fused_stage(X) if self.fuse else self.staged_stage(X)
         return self.combine_stage(Yc)
 
-    def diagonal(self) -> torch.Tensor:
+    def diagonal(self, compress=pk.compress_gather, combine=pk.combine
+                 ) -> torch.Tensor:
         """Assembled diagonal as a packed field [Nb, 384]."""
         Jp, Wp = self._planar_geom()
         d3 = pa_diag_planar(Jp, Wp, self.dN, *self.lam_mu)  # [3, k, B, E_c]
         return self.combine_stage(self.compress_stage(
-            planar_to_lanes(d3, self.plan.meta.lanes)))
+            planar_to_lanes(d3, self.plan.meta.lanes), compress), combine)
 
     def block_diagonal(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Assembled 3x3 node-block diagonal as two packed fields
@@ -1054,28 +1057,83 @@ class BlockJacobi:
 
 
 # ---------------------------------------------------------------------------
-# fixed-node constraints in the packed layout
+# constraints in the packed layout (SPC values / RBE2 / RBE3)
 # ---------------------------------------------------------------------------
 
 class PackedConstraints:
-    """Fixed-node constraints on packed [Nb, 384] fields: a 0/1 mask
-    (padding lanes are constrained by construction).  SPC values, RBE2 and
-    RBE3 are not ported yet."""
+    """SPC / RBE2 / RBE3 enforcement on packed [Nb, 384] fields (tpufem's
+    PackedConstraints): a 0/1 mask (padding lanes are constrained by
+    construction), the SPC values as a packed field, and the RBE2/RBE3
+    tables of a solvers.constraints.Constraints with every DOF translated
+    to its packed flat position (row * 384 + comp * 128 + node % 128 after
+    the plan's renumbering).  Rotation DOFs are dropped (the packed plane
+    carries translations).  RBE3's segment sum is a padded table summed
+    along its rows, a fixed order (solvers.constraints.rbe3_average)."""
 
     def __init__(self, mask: torch.Tensor):
         self.mask = mask
+        # set by build where present: the SPC values (when one is nonzero),
+        # the RBE2 pairs, the RBE3 tables (rbe3_slave and rbe3_weights end
+        # in one pad entry, DOF 0 with weight 0, that rbe3_table's pad reads)
+        self.spc_const = None
+        self.rbe2_slave = self.rbe2_master = None
+        self.rbe3_slave = self.rbe3_weights = self.rbe3_table = None
+        self.rbe3_master = self.rbe3_wsum = None
+
+    @property
+    def has_sets(self) -> bool:
+        return self.rbe2_slave is not None or self.rbe3_master is not None
 
     @staticmethod
     def build(cons, plan: PackedPlan, dtype=torch.float32
               ) -> "PackedConstraints":
-        """From a solvers.constraints.Constraints of fixed nodes."""
-        if np.any(cons.spc_values):
-            raise NotImplementedError("inhomogeneous SPC values are not "
-                                      "ported yet")
+        """From a solvers.constraints.Constraints (3- or 6-DOF tables)."""
+        from ..solvers.constraints import rbe3_table
+        nd = cons.dof_per_node
         npdt = torch.empty((), dtype=dtype).numpy().dtype
+        new_from_old = plan.new_from_old.cpu().numpy().astype(np.int64)
+        dev = plan.device
+
+        def pidx(dofs):
+            dofs = np.asarray(dofs, np.int64)
+            node, d = dofs // nd, dofs % nd
+            nn = new_from_old[node]
+            return (nn // BLK) * ROW + d * BLK + nn % BLK
+
+        def keep(dofs):
+            return np.asarray(dofs, np.int64) % nd < 3
+
+        def t(a, dt=torch.long):
+            return torch.as_tensor(np.asarray(a)).to(device=dev, dtype=dt)
+
         mask_n = np.asarray(cons.mask2d)[:, :3].astype(npdt)
-        return PackedConstraints(torch.from_numpy(plan.pack_np(mask_n)).to(
-            plan.device))
+        spc_n = np.asarray(cons.spc_const2d)[:, :3].astype(npdt)
+        out = PackedConstraints(t(plan.pack_np(mask_n), dtype))
+        if np.any(spc_n):
+            out.spc_const = t(plan.pack_np(spc_n), dtype)
+        r2s = np.asarray(cons.rbe2_slave_dofs, np.int64)
+        k2 = keep(r2s)
+        if k2.any():
+            out.rbe2_slave = t(pidx(r2s[k2]))
+            out.rbe2_master = t(pidx(np.asarray(cons.rbe2_master_dofs)[k2]))
+        # rotation-DOF RBE3 rows are dropped entirely; the constraint ids
+        # are renumbered over the translational masters
+        r3m = np.asarray(cons.rbe3_master_dofs, np.int64)
+        km = keep(r3m)
+        if km.any():
+            cid_map = -np.ones(r3m.size, np.int64)
+            cid_map[np.nonzero(km)[0]] = np.arange(int(km.sum()))
+            r3s = np.asarray(cons.rbe3_slave_dofs, np.int64)
+            cid = cid_map[np.asarray(cons.rbe3_cid, np.int64)]
+            sel = keep(r3s) & (cid >= 0)
+            out.rbe3_slave = t(np.append(pidx(r3s[sel]), 0))
+            out.rbe3_weights = t(np.append(
+                np.asarray(cons.rbe3_weights)[sel].astype(npdt), 0.0), dtype)
+            out.rbe3_table = t(rbe3_table(cid[sel], int(km.sum())))
+            out.rbe3_master = t(pidx(r3m[km]))
+            out.rbe3_wsum = t(np.asarray(cons.rbe3_weight_sums)[km]
+                              .astype(npdt), dtype)
+        return out
 
     @staticmethod
     def fixed(plan: PackedPlan, fixed_nodes, dtype=torch.float32
@@ -1087,7 +1145,19 @@ class PackedConstraints:
         return PackedConstraints.build(cons, plan, dtype)
 
     def apply_state(self, X: torch.Tensor) -> torch.Tensor:
-        return X * self.mask.to(X.dtype)
+        from ..solvers.constraints import rbe3_average
+        out = X * self.mask.to(X.dtype)
+        if self.spc_const is not None:
+            out = out + self.spc_const.to(X.dtype)
+        if self.has_sets:
+            xf = out.reshape(-1)
+            if self.rbe2_slave is not None:
+                xf[self.rbe2_slave] = xf[self.rbe2_master]
+            if self.rbe3_master is not None:
+                xf[self.rbe3_master] = rbe3_average(
+                    xf, self.rbe3_table, self.rbe3_slave,
+                    self.rbe3_weights.to(X.dtype), self.rbe3_wsum.to(X.dtype))
+        return out
 
     def project_residual(self, r: torch.Tensor) -> torch.Tensor:
         return r * self.mask.to(r.dtype)
@@ -1098,18 +1168,30 @@ class PackedConstraints:
 # ---------------------------------------------------------------------------
 
 class PackedSystem:
-    """Operator + fixed-node constraints + a Jacobi or block-Jacobi
-    preconditioner; PCG in the packed [Nb, 384] layout (solvers.cg)."""
+    """Operator + constraints (fixed nodes, or SPC/RBE2/RBE3 through a
+    solvers.constraints.Constraints) + a Jacobi or block-Jacobi
+    preconditioner; PCG in the packed [Nb, 384] layout (solvers.cg).
+
+    On the card each (tol, dot_dtype) gets one solvers.cg.CGBlock whose
+    32-iteration block (and the shorter last block of a chunk) is captured
+    once as a CUDA graph and replayed by every solve; `warm` and
+    `warm_chunked` capture it without running anything, as tpufem's AOT
+    compile does.  The per-call prologue (r = P(b - A u), the resume) runs
+    eagerly.  On the CPU the blocks run eagerly and `warm*` do nothing."""
 
     def __init__(self, op: PackedPartialOperator, fixed_nodes=None,
-                 precondition="jacobi"):
+                 precondition="jacobi", constraints=None):
         """precondition: "jacobi" (scalar diagonal from op.diagonal()),
         "block" (exact 3x3 node-block inverse, BlockJacobi) or
-        False/None."""
+        False/None.  constraints: optional solvers.constraints.Constraints
+        (SPC/RBE2/RBE3); fixed_nodes is the all-DOF-pin shortcut."""
         self.op = op
         plan = op.plan
         dtype = op.W.dtype
-        self.pc = PackedConstraints.fixed(plan, fixed_nodes, dtype)
+        if constraints is not None:
+            self.pc = PackedConstraints.build(constraints, plan, dtype)
+        else:
+            self.pc = PackedConstraints.fixed(plan, fixed_nodes, dtype)
         self.mask = self.pc.mask
         if precondition == "block":
             self.M_inv = BlockJacobi.build(op, mask=self.mask)
@@ -1119,7 +1201,37 @@ class PackedSystem:
                                1.0 / torch.where(d == 0, 1.0, d), 0.0)
             self.M_inv = minv * self.mask
         else:
-            self.M_inv = None
+            self.M_inv = torch.ones_like(self.mask)
+        self._blocks = {}
+
+    def _block(self, tol, dot_dtype):
+        """The CGBlock of this (tol, dot_dtype), made at first use."""
+        from ..solvers.cg import CGBlock
+        key = (float(tol), str(dot_dtype))
+        if key not in self._blocks:
+            self._blocks[key] = CGBlock(
+                self.op, self.mask, constraints=self.pc, M_inv=self.M_inv,
+                tol=tol, dot_dtype=dot_dtype)
+        return self._blocks[key]
+
+    def _capture(self, tol, max_iter, dot_dtype) -> None:
+        from ..solvers.cg import CHECK_EVERY
+        blk = self._block(tol, dot_dtype)
+        for n in {min(CHECK_EVERY, max_iter), max_iter % CHECK_EVERY}:
+            if n:
+                blk.capture(n)
+
+    def warm(self, b=None, x0=None, tol: float = 1e-8, max_iter: int = 1000,
+             dot_dtype=None) -> None:
+        """Capture the solve's blocks for this (tol, max_iter, dot_dtype)
+        without running them (b and x0, tpufem's arguments, are not
+        needed: the graphs read the state's static buffers)."""
+        self._capture(tol, max_iter, dot_dtype)
+
+    def warm_chunked(self, b=None, tol: float = 1e-8, every: int = 500,
+                     dot_dtype=None) -> None:
+        """Capture the chunked solve's blocks (see solve_chunked)."""
+        self._capture(tol, every, dot_dtype)
 
     def _rhs(self, b, x0):
         plan = self.op.plan
@@ -1129,25 +1241,18 @@ class PackedSystem:
                if x0 is not None else torch.zeros_like(bX))
         return bX, x0X
 
-    def _minv(self, like):
-        return self.M_inv if self.M_inv is not None else torch.ones_like(like)
-
     def solve(self, b, x0=None, tol: float = 1e-8, max_iter: int = 1000,
               dot_dtype=None):
         """b [N, 3] -> (u [N, 3], SolveInfo)."""
-        from ..solvers.cg import cg
         bX, x0X = self._rhs(b, x0)
-        uX, info = cg(self.op, self.pc.project_residual(bX),
-                      constraints=self.pc, M_inv=self._minv(bX), x0=x0X,
-                      tol=tol, max_iter=max_iter, dot_dtype=dot_dtype)
+        uX, info = self._block(tol, dot_dtype).solve(
+            self.pc.project_residual(bX), x0=x0X, max_iter=max_iter)
         return self.op.plan.unpack(uX), info
 
     def _chunk(self, bX, x0X, pX, rz, tol, every, dot_dtype):
-        from ..solvers.cg import cg
-        return cg(self.op, self.pc.project_residual(bX), constraints=self.pc,
-                  M_inv=self._minv(bX), x0=x0X, tol=tol, max_iter=every,
-                  dot_dtype=dot_dtype, resume_state=(pX, rz),
-                  return_state=True)
+        return self._block(tol, dot_dtype).solve(
+            self.pc.project_residual(bX), x0=x0X, max_iter=every,
+            resume_state=(pX, rz), return_state=True)
 
     def solve_chunked_packed(self, bX: torch.Tensor, tol: float = 1e-8,
                              max_iter: int = 20000, every: int = 500,

@@ -1,12 +1,19 @@
 """(Preconditioned) conjugate gradients with tpufem's status semantics.
 
-tpufem runs the whole loop as one ``lax.while_loop``.  Here the loop is a
-Python loop whose state stays on the device: the status, rz and the norms
-are device scalars, and a device-side ``running`` flag freezes the state
-(and the iteration count) once the status leaves RUNNING, so the iterate
-and the count equal the while_loop's.  The host reads the status only
-every ``CHECK_EVERY`` iterations and at the end; the iterations run after
-the stop and before the next check change nothing.
+tpufem runs the whole loop as one ``lax.while_loop``.  Here the loop runs
+in blocks of ``CHECK_EVERY`` iterations (``CGBlock``) whose state stays on
+the device: the status, rz and the norms are device scalars, and a
+device-side ``running`` flag freezes the state (and the iteration count)
+once the status leaves RUNNING, so the iterate and the count equal the
+while_loop's.  The host reads the status only between blocks and at the
+end; the iterations run after the stop and before the next read change
+nothing.
+
+A block takes and returns device tensors only (it updates a ``CGState`` in
+place, and writes its part of the history into a block buffer that the
+host copies out after it), so on a CUDA device each block length is
+captured once as a CUDA graph and replayed (``ops.cuda.Graph``); on the
+CPU the same block function runs eagerly.  A capture that fails raises.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ MAX_ITER = 2
 NOT_SPD = 3
 NAN_INF = 4
 
-# iterations between the host's reads of the status
+# iterations between the host's reads of the status: one block
 CHECK_EVERY = 32
 
 
@@ -34,6 +41,191 @@ class SolveInfo(NamedTuple):
 
 def _noop(x):
     return x
+
+
+class CGState:
+    """The loop's state as device tensors that a block updates in place:
+    u, r, p (shaped like b), rz, hlast (the last recorded ||r||), status
+    and i (int32 scalars), and hblock [CHECK_EVERY], the history of the
+    block just run."""
+
+    __slots__ = ("u", "r", "p", "rz", "hlast", "status", "i", "hblock")
+
+    def __init__(self, like: torch.Tensor):
+        self.u = torch.empty_like(like)
+        self.r = torch.empty_like(like)
+        self.p = torch.empty_like(like)
+        scal = dict(dtype=like.dtype, device=like.device)
+        self.rz = torch.empty((), **scal)
+        self.hlast = torch.empty((), **scal)
+        self.hblock = torch.empty((CHECK_EVERY,), **scal)
+        self.status = torch.empty((), dtype=torch.int32, device=like.device)
+        self.i = torch.empty((), dtype=torch.int32, device=like.device)
+
+
+class CGBlock:
+    """cg's loop body: `run(n)` advances a CGState by n <= CHECK_EVERY
+    iterations.  On a CUDA device each n is captured once as a CUDA graph
+    over the state's buffers (the graphs share one memory pool) and
+    replayed; `capture(n)` captures without running anything.  Every
+    tensor the body reads (the operator's, the preconditioner's, the
+    constraints') is held here, so the graphs' addresses stay valid.
+
+    A capture cannot copy from the host, so the constraints' projections
+    run once here, eagerly on `like`: whatever device tables they make at
+    first use exist before any capture.  The configuration (A, the
+    constraints, M_inv, tol, eps, the history, the dot dtype) lives here
+    only: `solve` takes the right-hand side and the per-call options."""
+
+    def __init__(self, A: Callable, like: torch.Tensor, *, constraints=None,
+                 M_inv=None, tol: float = 1e-10, eps: float = 1e-30,
+                 record_history: bool = True, dot_dtype=None):
+        self.A = A
+        self.constraints = constraints
+        self.M_inv = M_inv
+        self.tol, self.eps = float(tol), float(eps)
+        self.record = bool(record_history)
+        self.dtype = like.dtype
+        self.ddt = dot_dtype or like.dtype
+        self.project = constraints.project_residual if constraints else _noop
+        self.set_state = constraints.apply_state if constraints else _noop
+        if M_inv is None:
+            self.apply_M = _noop
+        elif callable(M_inv):
+            self.apply_M = M_inv
+        else:
+            self.apply_M = lambda r: r * M_inv  # noqa: E731
+        self.project(like)
+        self.set_state(like)
+        self.state = CGState(like)
+        self.graphed = like.device.type == "cuda"
+        self.graphs = {}
+
+    def vdot(self, a, c):
+        return torch.sum(a.to(self.ddt) * c.to(self.ddt)).to(self.dtype)
+
+    def body(self, n: int) -> None:
+        """n iterations of the loop on the state, in place."""
+        st = self.state
+        A, project, set_state, apply_M, vdot = (
+            self.A, self.project, self.set_state, self.apply_M, self.vdot)
+        tol, eps = self.tol, self.eps
+        u, r, p, rz, hlast, status, i = (st.u, st.r, st.p, st.rz, st.hlast,
+                                         st.status, st.i)
+        for j in range(n):
+            running = status == RUNNING
+            Ap = A(p)
+            pAp = vdot(p, Ap)
+            bad_curv = (torch.abs(pAp) < eps) | (pAp < 0.0)
+            alpha = rz / (pAp + eps)
+            bad_alpha = torch.isnan(alpha) | torch.isinf(alpha)
+
+            u1 = set_state(u + alpha * p)
+            r1 = project(r - alpha * Ap)
+            z1 = apply_M(r1)
+            rz1 = vdot(r1, z1)
+            rnorm = torch.sqrt(vdot(r1, r1))
+            beta = rz1 / (rz + eps)
+            bad_beta = torch.isnan(beta) | torch.isinf(beta)
+            p1 = project(z1 + beta * p)
+
+            new_status = torch.where(
+                bad_curv, NOT_SPD,
+                torch.where(bad_alpha | bad_beta, NAN_INF,
+                            torch.where(rnorm < tol, CONVERGED, RUNNING))
+            ).to(torch.int32)
+            # on a bad step keep the previous iterate; once stopped keep all
+            take = (new_status != NOT_SPD) & ~bad_alpha
+            keep = running & take
+            u = torch.where(keep, u1, u)
+            r = torch.where(keep, r1, r)
+            p = torch.where(keep, p1, p)
+            rz = torch.where(keep, rz1, rz)
+            if self.record:
+                hlast = torch.where(running, torch.where(take, rnorm, hlast),
+                                    float("inf"))
+                st.hblock[j] = hlast
+            status = torch.where(running, new_status, status)
+            i = i + running.to(torch.int32)
+        for name, val in (("u", u), ("r", r), ("p", p), ("rz", rz),
+                          ("hlast", hlast), ("status", status), ("i", i)):
+            buf = getattr(st, name)
+            if val is not buf:
+                buf.copy_(val)
+
+    def capture(self, n: int) -> None:
+        """Capture the n-iteration block as a CUDA graph (runs nothing);
+        nothing on the CPU."""
+        if self.graphed and n not in self.graphs:
+            from ..ops.cuda import Graph
+            pool = next(iter(self.graphs.values())).pool() \
+                if self.graphs else None
+            self.graphs[n] = Graph(lambda: self.body(n), pool=pool)
+
+    def run(self, n: int) -> None:
+        if not self.graphed:
+            self.body(n)
+            return
+        self.capture(n)
+        self.graphs[n].replay()
+
+    def solve(self, b: torch.Tensor, *, x0: Optional[torch.Tensor] = None,
+              max_iter: int = 1000, resume_state=None,
+              return_state: bool = False):
+        """(P)CG on A u = b with this block's A, constraints, M_inv, tol,
+        eps, history and dot dtype: the prologue eagerly, then blocks of
+        CHECK_EVERY iterations (see cg).  A block kept by its caller serves
+        many solves with the same graphs."""
+        dtype = b.dtype
+        dev = b.device
+        if b.shape != self.state.u.shape or dtype != self.dtype:
+            raise ValueError(
+                f"b {tuple(b.shape)} {dtype} does not match the block's "
+                f"state {tuple(self.state.u.shape)} {self.dtype}")
+        A, project, set_state, apply_M, vdot = (
+            self.A, self.project, self.set_state, self.apply_M, self.vdot)
+        tol, record = self.tol, self.record
+
+        u = set_state(torch.zeros_like(b) if x0 is None else x0.to(dtype))
+        r = project(b - A(u))
+        z = apply_M(r)
+        rz = vdot(r, z)
+        if resume_state is None:
+            p = z
+        else:
+            p_prev, rz_prev = resume_state
+            rz_prev = torch.as_tensor(rz_prev, dtype=dtype, device=dev)
+            p = torch.where(rz_prev > 0, project(p_prev.to(dtype)), z)
+
+        hist = torch.full((max_iter + 1 if record else 1,), float("inf"),
+                          dtype=dtype, device=dev)
+        r0norm = torch.sqrt(vdot(r, r))
+        if record:
+            hist[0] = r0norm
+        status = torch.where(r0norm < tol, CONVERGED, RUNNING).to(torch.int32)
+
+        st = self.state
+        for name, val in (("u", u), ("r", r), ("p", p), ("rz", rz),
+                          ("hlast", r0norm), ("status", status)):
+            getattr(st, name).copy_(val)
+        st.i.zero_()
+        for it in range(0, max_iter, CHECK_EVERY):
+            if int(st.status) != RUNNING:
+                break
+            n = min(CHECK_EVERY, max_iter - it)
+            self.run(n)
+            if record:
+                hist[it + 1:it + 1 + n] = st.hblock[:n]
+
+        status = torch.where(st.status == RUNNING, MAX_ITER,
+                             st.status).to(torch.int32)
+        u, r, p, rz = (st.u.clone(), st.r.clone(), st.p.clone(),
+                       st.rz.clone())
+        rnorm = torch.sqrt(vdot(r, r))
+        info = SolveInfo(status, st.i.clone(), rnorm, hist)
+        if return_state:
+            return u, info, (p, rz)
+        return u, info
 
 
 def cg(A: Callable, b: torch.Tensor, *, constraints=None, M_inv=None,
@@ -49,82 +241,11 @@ def cg(A: Callable, b: torch.Tensor, *, constraints=None, M_inv=None,
     accumulate the dot products in this dtype (vectors stay in b's).
     resume_state=(p, rz) continues a previous call's recurrence exactly
     (rz <= 0 means a fresh start, p0 = z0); return_state=True also returns
-    (p, rz) for the next call.  Returns (u, SolveInfo)."""
-    dtype = b.dtype
-    dev = b.device
-    project = constraints.project_residual if constraints else _noop
-    set_state = constraints.apply_state if constraints else _noop
-    ddt = dot_dtype or dtype
-
-    def vdot(a, c):
-        return torch.sum(a.to(ddt) * c.to(ddt)).to(dtype)
-
-    if M_inv is None:
-        apply_M = _noop
-    elif callable(M_inv):
-        apply_M = M_inv
-    else:
-        apply_M = lambda r: r * M_inv  # noqa: E731
-
-    u = set_state(torch.zeros_like(b) if x0 is None else x0.to(dtype))
-    r = project(b - A(u))
-    z = apply_M(r)
-    rz = vdot(r, z)
-    if resume_state is None:
-        p = z
-    else:
-        p_prev, rz_prev = resume_state
-        rz_prev = torch.as_tensor(rz_prev, dtype=dtype, device=dev)
-        p = torch.where(rz_prev > 0, project(p_prev.to(dtype)), z)
-
-    hist = torch.full((max_iter + 1 if record_history else 1,), float("inf"),
-                      dtype=dtype, device=dev)
-    r0norm = torch.sqrt(vdot(r, r))
-    if record_history:
-        hist[0] = r0norm
-    status = torch.where(r0norm < tol, CONVERGED, RUNNING).to(torch.int32)
-    i = torch.zeros((), dtype=torch.int32, device=dev)
-
-    for it in range(max_iter):
-        if it % CHECK_EVERY == 0 and int(status) != RUNNING:
-            break
-        running = status == RUNNING
-        Ap = A(p)
-        pAp = vdot(p, Ap)
-        bad_curv = (torch.abs(pAp) < eps) | (pAp < 0.0)
-        alpha = rz / (pAp + eps)
-        bad_alpha = torch.isnan(alpha) | torch.isinf(alpha)
-
-        u1 = set_state(u + alpha * p)
-        r1 = project(r - alpha * Ap)
-        z1 = apply_M(r1)
-        rz1 = vdot(r1, z1)
-        rnorm = torch.sqrt(vdot(r1, r1))
-        beta = rz1 / (rz + eps)
-        bad_beta = torch.isnan(beta) | torch.isinf(beta)
-        p1 = project(z1 + beta * p)
-
-        new_status = torch.where(
-            bad_curv, NOT_SPD,
-            torch.where(bad_alpha | bad_beta, NAN_INF,
-                        torch.where(rnorm < tol, CONVERGED, RUNNING))
-        ).to(torch.int32)
-        # on a bad step keep the previous iterate; once stopped keep all
-        take = (new_status != NOT_SPD) & ~bad_alpha
-        keep = running & take
-        u = torch.where(keep, u1, u)
-        r = torch.where(keep, r1, r)
-        p = torch.where(keep, p1, p)
-        rz = torch.where(keep, rz1, rz)
-        if record_history:
-            hist[it + 1] = torch.where(
-                running, torch.where(take, rnorm, hist[it]), hist[it + 1])
-        status = torch.where(running, new_status, status)
-        i = i + running.to(torch.int32)
-
-    status = torch.where(status == RUNNING, MAX_ITER, status).to(torch.int32)
-    rnorm = torch.sqrt(vdot(r, r))
-    info = SolveInfo(status, i, rnorm, hist)
-    if return_state:
-        return u, info, (p, rz)
-    return u, info
+    (p, rz) for the next call.  One CGBlock serves this call; a caller
+    that solves many times keeps a CGBlock and calls its `solve`, so that
+    its graphs are captured once.  Returns (u, SolveInfo)."""
+    block = CGBlock(A, b, constraints=constraints, M_inv=M_inv, tol=tol,
+                    eps=eps, record_history=record_history,
+                    dot_dtype=dot_dtype)
+    return block.solve(b, x0=x0, max_iter=max_iter,
+                       resume_state=resume_state, return_state=return_state)

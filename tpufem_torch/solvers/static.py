@@ -10,9 +10,12 @@ operators: "assembled" (MatrixFreeOperator over a ScatterPlan) and
 solid.stiffness (kernel K6 for k <= 10 types).  PyTorch runs eagerly, so
 there is no jit: setup runs once and cg loops on the device.
 
-Not ported yet: shell blocks and the mixed solid/shell model (ROADMAP
-module item 11), operator="packed" with constraints (items 4 and 5b) and
-operator="partial" (item 9).
+operator="packed" solves one solid block on the packed operator
+(ops.packed.PackedSystem: SPC/RBE2/RBE3 through PackedConstraints, PCG as
+CUDA graphs on the card) and returns [N, 6] as tpufem does.
+
+Not ported yet: shell blocks and the mixed solid/shell model, also on the
+packed operator (ROADMAP §1 queue item 6), and operator="partial" (item 7).
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from ..ops.scatter import ScatterPlan
 from .cg import cg
 from .constraints import Constraints
 
-OPERATORS = ("assembled", "clustered")
+OPERATORS = ("assembled", "clustered", "packed")
 
 
 class StaticModel(torch.nn.Module):
@@ -66,24 +69,25 @@ class StaticModel(torch.nn.Module):
 
 
 def _check_blocks(blocks: Dict, operator: str) -> None:
-    if operator == "packed":
-        raise NotImplementedError(
-            "operator='packed' is not ported to static_structure_solver yet "
-            "(ROADMAP module items 4 and 5b); use PackedSystem")
     if operator == "partial":
         raise NotImplementedError(
             "operator='partial' (PartialAssemblyOperator) is not ported yet "
-            "(ROADMAP module item 9)")
+            "(ROADMAP §1 queue item 7)")
     if operator not in OPERATORS:
         raise ValueError(f"operator must be one of {OPERATORS}, got "
                          f"{operator!r}")
     for et in blocks:
         if et.lower() in SHELL_TYPES:
             raise NotImplementedError(
-                f"shell block {et!r}: shells are not ported yet (ROADMAP "
-                f"module item 11)")
+                f"shell block {et!r}: shells and the mixed solid/shell "
+                f"model are not ported yet (ROADMAP §1 queue item 6)")
         if et.lower() not in SOLID_TYPES:
             raise ValueError(f"Unsupported element type: {et}")
+    if operator == "packed" and len(blocks) != 1:
+        raise NotImplementedError(
+            f"operator='packed' with {len(blocks)} blocks: the mixed "
+            f"packed system (several solid blocks, or solids and shells) "
+            f"is not ported yet (ROADMAP §1 queue item 6)")
 
 
 def build_static_model(coords, blocks: Dict[str, np.ndarray], material: dict,
@@ -96,6 +100,9 @@ def build_static_model(coords, blocks: Dict[str, np.ndarray], material: dict,
     given, gets the seconds of each stage ("stiffness", "plans",
     "operator"), each ending in a device synchronise."""
     _check_blocks(blocks, operator)
+    if operator == "packed":
+        raise ValueError("operator='packed' has no assembled model: "
+                         "static_structure_solver solves it on PackedSystem")
     dev = resolve_device(device)
     coords_t = torch.as_tensor(coords if isinstance(coords, torch.Tensor)
                                else np.asarray(coords), device=dev)
@@ -182,6 +189,10 @@ def static_structure_solver(coords, force, fixed=None, *, material: dict,
     if constraints is None:
         constraints = Constraints.fixed(N, fixed if fixed is not None else [],
                                         6, dtype=np_dt)
+    if operator == "packed":
+        return _packed_solve(coords, force_t, blocks, material, constraints,
+                             u_init, tol, max_iter, precondition, dot_dtype,
+                             dev, timings)
     model = build_static_model(coords, blocks, material, dtype=dt,
                                operator=operator, device=dev, timings=timings)
     t0 = time.perf_counter()
@@ -202,3 +213,34 @@ def static_structure_solver(coords, force, fixed=None, *, material: dict,
     if timings is not None:
         timings.update(jacobi=t1 - t0, solve=time.perf_counter() - t1)
     return u, info
+
+
+def _packed_solve(coords, force_t, blocks, material, constraints, u_init,
+                  tol, max_iter, precondition, dot_dtype, dev, timings):
+    """One solid block on the packed operator (tpufem's operator="packed"
+    branch): the translations are solved, the rotations stay zero."""
+    from ..ops.packed import PackedPartialOperator, PackedSystem
+    (et, conn), = blocks.items()
+    dt, N = force_t.dtype, force_t.shape[0]
+    t0 = time.perf_counter()
+    op = PackedPartialOperator.build(
+        np.asarray(coords), np.asarray(conn), et.lower(), material["E"],
+        material["nu"], n_nodes=N, dtype=dt, device=dev)
+    system = PackedSystem(
+        op, constraints=constraints,
+        precondition=(precondition if isinstance(precondition, str)
+                      else ("jacobi" if precondition else None)))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    x0 = (torch.as_tensor(np.asarray(u_init)[:, :3], dtype=dt, device=dev)
+          if u_init is not None else None)
+    u3, info = system.solve(force_t[:, :3], x0=x0, tol=tol,
+                            max_iter=max_iter, dot_dtype=dot_dtype)
+    u6 = u3.new_zeros((N, 6))
+    u6[:, :3] = u3
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    if timings is not None:
+        timings.update(operator=t1 - t0, solve=time.perf_counter() - t1)
+    return u6, info
