@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Drive tpufem_torch's three ported paths and its three probes on one
-CUDA card: the refined packed c3d10 solve, the assembled-stiffness static
+"""Drive tpufem_torch's ported paths and its three probes on one CUDA
+card: the refined packed c3d10 solve, the assembled-stiffness static
 solve, the staged packed pipeline under the block-Jacobi refined solve,
-the relayout, row-read and planar-I/O probes, and the converged refined
-solve at tpufem's largest size.  Every PCG solve runs its 32-iteration
-blocks as CUDA graphs (solvers.cg.CGBlock).
+the relayout, row-read and planar-I/O probes, the converged refined solve
+at tpufem's largest size, and the rest of the solver family with the
+mixed solid + shell driver.  Every PCG and BiCGStab solve runs its
+32-iteration blocks, and GMRES each restart cycle, as CUDA graphs.
 
     python3 chip_smoke.py            # box_tet10(55): 1.00M elements, 4.1M
                                      # DOF; phase 11 at box_tet10(119)
-    python3 chip_smoke.py --n 10 --scale-n 20   # a quick check
+    python3 chip_smoke.py --n 10 --scale-n 20 --mixed-n 8 --plate-n 16
+                                            # a quick check
     python3 chip_smoke.py --phases staged   # some paths (packed, static,
-                                            # staged, probes, scale)
+                                            # staged, probes, scale, family)
     python3 chip_smoke.py --phases turns    # K6, K5b and K3 alone (run
                         # from copies of two trees in turns to compare them)
 
@@ -138,6 +140,44 @@ printed):
       K1-K3's launches (K1, K2 by graph replays); fails above 1e-6, at a
       cycle count other than 3, on a tip that is not finite and negative,
       or on a kernel with no launch.
+  The solver family and the mixed driver (f64; every count 0 just before
+  each solve and read just after it; the launches of K1, K2, K3 and K6
+  and the share of them by graph replays, the peak device memory, the
+  setup stages and the solve seconds printed for each):
+  12a. box_tet10(--n), z = 0 fixed, -1e3 in z on the top face, the f64
+       packed operator with scalar Jacobi (K3 in its diagonal): the first
+       64 BiCGStab iterations and the first GMRES(50) cycle through K1/K2
+       (CUDA graphs) bitwise equal to the same with their plain versions
+       (eager) on the same tables, the Jacobi diagonal through K3 too;
+       then solve_bicgstab (tol 1e-6 relative, at most 4000),
+       solve_gmres (left Jacobi, tol 1e-6 ||M^-1 b||, restart 50, at most
+       3000) and modal (lumped mass, rho 7800, 5 modes, 12 subspace
+       iterations, inner tol 1e-8, at most 800), with the Ritz values of
+       each iteration and each mode's f64 eigen-residual
+       ||K phi - lam M phi|| / (lam ||M phi||);
+  12b. BASELINE config 3 at n = --mixed-n (default 64: box_tet below
+       z = 0.5, box_wedge above, an s4 skin on the top face; tpufem's
+       tests/test_solvers.py loads and material), through
+       static_structure_solver operator="packed" (PackedMixedSystem: K1-K3
+       for the tets, K6 for the wedges) and "assembled" (K6 for both),
+       Jacobi, tol 1e-6 ||b||; then, after the counts were read, K1 and
+       K2 (the packed primary applied to the solution on its own plan),
+       K3 (its Jacobi diagonal) and K6 (the tets' and wedges' K as the
+       assembled model and the packed system hold them) bitwise against
+       their plain versions at these sizes;
+  12c. s4 and s3 plates, grid --plate-n (default 128), clamped at x = 0,
+       a transverse force, an end moment and an in-plane pull at x = 1,
+       assembled, Jacobi, tol 1e-6 ||b||, at most 20000 iterations.
+  Fails on NAN_INF or BREAKDOWN; when a reported residual and the one
+  recomputed in f64 (F64Operator for c3d10, the assembled f64 model for
+  the mixed and shell models) or its history's last entry differ by more
+  than 1e-6 relative to the larger; when a converged solve's recomputed
+  residual lies above its bar (1e-6 of its norm); on a kernel of a path
+  without launches; on the bitwise comparisons above; when the packed and
+  assembled config-3 solutions differ by more than rtol 2e-5, atol 1e-7
+  max|u|; on a mode non-zero on a fixed node or an eigen-residual above
+  1e-3; and on a plate DOF without stiffness (w, theta_z) that is
+  non-zero.  MAX_ITER alone is not a failure.
   With --phases turns (not in the default): the timings of 8d (K6) and
   9d (K5b in turns with K3), by the same helpers, on box_tet10(n) alone.
   For before/after figures, copy this
@@ -146,7 +186,8 @@ printed):
   parent); the build step names the package it imported.
 It then prints {"kernels": [...]} (the static kernels' numbers are
 float64, the main path's type, with the float32 ones beside them; K1,
-K5b, K6, K7a and K7b add ms_min and ms_max), the
+K5b, K6, K7a and K7b add ms_min and ms_max; K1-K3 and K6 add
+family_launches and family_replayed, phase 12's), the
 card's name and power limit, and, last, {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -1888,21 +1929,454 @@ def scale_phase(args, dev):
     return launches
 
 
+# phase 12's material: tpufem's tests/test_solvers.py MAT (solids and
+# shells); the packed family runs the box of the record (E, NU above)
+FAMILY_MAT = {"E": 200.0, "nu": 0.3, "membrane": (200.0, 0.3, 0.05),
+              "bending": (200.0, 0.3, 0.05)}
+MODAL_OUTER, MODAL_INNER = 12, 800
+
+
+def family_phase(args, dev):
+    """The rest of the solver family, the mixed solid + shell driver and
+    the pure-shell plates (phase 12 of the module docstring).  Returns the
+    launches of K1, K2, K3 and K6 summed over its main-path windows, and
+    those of them by graph replays."""
+    import tpufem_torch as tt
+    from tpufem_torch.ops import fused_kernels as fk, packed_kernels as pk
+    from tpufem_torch.solvers.bicgstab import BiCGStabBlock
+    from tpufem_torch.ops import stiffness_kernels as sk
+    from tpufem_torch.solvers.cg import CONVERGED, NAN_INF, NOT_SPD
+    from tpufem_torch.solvers.gmres import GMRESCycle
+
+    f64 = torch.float64
+    mg = tt.meshgen
+    watched = (tt.FUSED_YC, tt.COMBINE, tt.COMPRESS_GATHER,
+               tt.STIFFNESS_FUSED)
+    totals = {K.name: [0, 0] for K in watched}
+
+    def zero():
+        torch.cuda.synchronize()
+        for K in tt.KERNELS:
+            K.launches = K.replayed = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def read(label, need):
+        """Launches since zero() (and by graph replays); fails when a
+        kernel of `need` has none."""
+        torch.cuda.synchronize()
+        out = {K.name: (K.launches, K.replayed) for K in watched}
+        for name, (n, r) in out.items():
+            totals[name][0] += n
+            totals[name][1] += r
+        for name in need:
+            if out[name][0] <= 0:
+                fail(f"family {label}: kernel {name} was not launched")
+        text = ", ".join(
+            f"{k} {n}" + (f" ({100.0 * r / n:.1f}% by graph replays)"
+                          if n else "") for k, (n, r) in out.items())
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        return f"launches {text}; peak device memory {peak:.2f} GB"
+
+    def check(label, info, rep, true, last):
+        """rep, true, last: the reported, the recomputed f64 and the
+        history's last residual, each relative to the norm of which the
+        solve's bar is 1e-6.  Each of the last two lies within 1e-6 of
+        rep relative to the larger; a converged solve's recomputed
+        residual lies under the bar."""
+        status = int(info.status)
+        if status in (NOT_SPD, NAN_INF):
+            fail(f"family {label}: status {status}")
+        gaps = [abs(rep - x) / max(rep, x) for x in (true, last)]
+        log(f"family {label}: reported residual {rep:.9e}, f64 recomputed "
+            f"{true:.9e}, history's last {last:.9e}; relative gaps "
+            f"{gaps[0]:.3e}, {gaps[1]:.3e}")
+        for name, gap in zip(("f64 recomputed", "history's last entry"),
+                             gaps):
+            if not gap <= 1e-6:
+                fail(f"family {label}: reported residual and the {name} "
+                     f"differ by {gap:.3e} relative, more than 1e-6")
+        if status == CONVERGED and not true <= 1e-6 * (1.0 + 1e-6):
+            fail(f"family {label}: converged, but the f64 recomputed "
+                 f"residual {true:.9e} is above the bar 1e-6")
+
+    # -- 12a. the packed family at box_tet10(n), f64 --------------------
+    n = args.n
+    t0 = time.perf_counter()
+    coords, conn = mg.box_tet10(n, n, n)
+    N, M = coords.shape[0], conn.shape[0]
+    fixed = mg.boundary_nodes(coords, 2, 0.0)
+    top = mg.boundary_nodes(coords, 2, 1.0)
+    b = np.zeros((N, 3))
+    b[top, 2] = -1e3
+    t_mesh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = tt.PackedPlan.build(coords, conn, N, device=dev)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = tt.PackedPartialOperator.build(coords, conn, "c3d10", E, NU,
+                                        plan=plan, dtype=f64, device=dev)
+    torch.cuda.synchronize()
+    t_geom = time.perf_counter() - t0
+    zero()
+    t0 = time.perf_counter()
+    system = tt.PackedSystem(op, fixed_nodes=fixed, precondition="jacobi")
+    torch.cuda.synchronize()
+    t_sys = time.perf_counter() - t0
+    sys_launches = read("Jacobi system", ["compress_gather", "combine"])
+    t0 = time.perf_counter()
+    op64 = tt.F64Operator(coords, conn, "c3d10", E, NU, geometry_dtype=f64,
+                          device=dev)
+    torch.cuda.synchronize()
+    t_op64 = time.perf_counter() - t0
+    log(f"family setup: box_tet10({n}) {M} elements, {N} nodes, f64 packed "
+        f"operator; mesh {t_mesh:.2f} s, plan {t_plan:.2f} s, geometry "
+        f"{t_geom:.2f} s, Jacobi system {t_sys:.2f} s ({sys_launches}), "
+        f"F64Operator {t_op64:.2f} s")
+    m3 = torch.ones((N, 3), dtype=f64, device=dev)
+    m3[torch.as_tensor(fixed, device=dev).long()] = 0.0
+    b_t = torch.as_tensor(b, dtype=f64, device=dev)
+    bnorm = float(torch.linalg.norm(b_t * m3))
+
+    def resid3(u3):
+        """P (b - K u) by the independent f64 operator, [N, 3]."""
+        return (b_t - op64(u3.reshape(-1)).reshape(N, 3)) * m3
+
+    # the kernels' histories against their plain versions' on the same
+    # tables (before the counted windows: comparison launches do not count)
+    def plain_op(X):
+        return op.combine_stage(op.fused_stage(X, kernel=fk.fused_yc_plain),
+                                kernel=pk.combine_plain)
+
+    bX = system.pc.project_residual(system._rhs(b, None)[0])
+    t0 = time.perf_counter()
+    u_k, i_k = system.solve_bicgstab(b, tol=1e-6, max_iter=64)
+    blk = BiCGStabBlock(plain_op, system.mask, constraints=system.pc,
+                        tol=1e-6)
+    blk.graphed = False
+    uX_p, i_p = blk.solve(bX, max_iter=64)
+    torch.cuda.synchronize()
+    same = (torch.equal(i_k.history, i_p.history)
+            and torch.equal(u_k, plan.unpack(uX_p))
+            and int(i_k.iterations) == int(i_p.iterations) == 64)
+    if not same:
+        fail("family: BiCGStab's first 64 iterations through K1/K2 differ "
+             "from the same with their plain versions")
+    log(f"family parity BiCGStab: the first 64 iterations through the "
+        f"kernels (CUDA graphs) bitwise equal to the plain versions' "
+        f"(eager): history {i_k.history[64].item():.6e} at 64, "
+        f"{time.perf_counter() - t0:.2f} s")
+    del blk, uX_p, u_k
+    t0 = time.perf_counter()
+    d_p = op.diagonal(compress=pk.compress_gather_plain,
+                      combine=pk.combine_plain)
+    jac_p = torch.where(torch.abs(d_p) > 0,
+                        1.0 / torch.where(d_p == 0, 1.0, d_p),
+                        0.0) * system.mask
+    if not torch.equal(jac_p, system.jacobi):
+        fail("family: the Jacobi diagonal through K3/K2 differs from the "
+             "plain versions'")
+    Mb = float(torch.linalg.norm(system.jacobi * bX))
+    gtol = 1e-6 * Mb
+    u_k, i_k = system.solve_gmres(b, tol=gtol, max_iter=50, restart=50)
+    cyc = GMRESCycle(plain_op, system.mask, constraints=system.pc,
+                     M_inv=jac_p, tol=gtol, restart=50)
+    cyc.graphed = False
+    uX_p, i_p = cyc.solve(bX, max_iter=50)
+    torch.cuda.synchronize()
+    same = (torch.equal(i_k.history, i_p.history)
+            and torch.equal(u_k, plan.unpack(uX_p))
+            and torch.equal(i_k.residual_norm, i_p.residual_norm))
+    if not same:
+        fail("family: GMRES's first cycle through K1/K2 differs from the "
+             "same with their plain versions")
+    log(f"family parity GMRES: the first cycle (50 steps, left Jacobi) "
+        f"through the kernels (one CUDA graph) bitwise equal to the plain "
+        f"versions' (eager), Jacobi diagonal through K3 bitwise equal too; "
+        f"residual {float(i_k.residual_norm) / Mb:.6e} of ||M^-1 b||, "
+        f"{time.perf_counter() - t0:.2f} s")
+    del cyc, uX_p, u_k, jac_p, d_p
+    torch.cuda.empty_cache()
+
+    # BiCGStab to 1e-6 (relative to ||r0|| = ||P b||)
+    zero()
+    t0 = time.perf_counter()
+    u, info = system.solve_bicgstab(b, tol=1e-6, max_iter=4000)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    text = read("BiCGStab", ["fused_yc", "combine"])
+    it = int(info.iterations)
+    rep = float(info.residual_norm) / bnorm
+    true = float(torch.linalg.norm(resid3(u))) / bnorm
+    last = float(info.history[it]) / bnorm
+    log(f"family BiCGStab: status {int(info.status)}, iterations {it}, "
+        f"residual {rep:.6e} of ||P b|| (f64 F64Operator {true:.6e}, "
+        f"history's last {last:.6e}), solve {t_solve:.2f} s "
+        f"({t_solve / max(it, 1) * 1e3:.3f} ms per iteration, derived); "
+        f"{text}")
+    check("BiCGStab", info, rep, true, last)
+
+    # GMRES(50), left Jacobi, to 1e-6 ||M^-1 b||
+    zero()
+    t0 = time.perf_counter()
+    u, info = system.solve_gmres(b, tol=gtol, max_iter=3000, restart=50)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    text = read("GMRES", ["fused_yc", "combine"])
+    used = int(info.iterations)
+    r3 = resid3(u)
+    rep = float(info.residual_norm) / Mb
+    true = float(torch.linalg.norm(system.jacobi * plan.pack(r3))) / Mb
+    last = float(info.history[used - 1]) / Mb if used else rep
+    log(f"family GMRES: status {int(info.status)}, iterations {used} "
+        f"({-(-used // 50)} cycles), residual {rep:.6e} of ||M^-1 b|| (f64 "
+        f"F64Operator {true:.6e}, the last cycle's estimate {last:.6e}; "
+        f"unpreconditioned {float(torch.linalg.norm(r3)) / bnorm:.6e} of "
+        f"||P b||), solve {t_solve:.2f} s ({t_solve / max(used, 1) * 1e3:.3f}"
+        f" ms per iteration, derived); {text}")
+    check("GMRES", info, rep, true, last)
+    del u, r3
+    torch.cuda.empty_cache()
+
+    # modal: 5 modes, lumped mass, rho = 7800
+    t0 = time.perf_counter()
+    ct = torch.as_tensor(coords, dtype=f64, device=dev)
+    conn_t = torch.as_tensor(conn, device=dev)
+    splan = tt.ScatterPlan.build(conn, N, 3, device=dev)
+    mass = splan.scatter(tt.solid.lumped_mass(ct, conn_t, "c3d10",
+                                              7800.0)).reshape(N, 3)
+    del splan, ct, conn_t
+    torch.cuda.synchronize()
+    t_mass = time.perf_counter() - t0
+    zero()
+    t0 = time.perf_counter()
+    # 12 subspace iterations of inner PCG runs of at most 800
+    # (tpufem_torch.scripts.modal_sweep, PERF.md §6): the inner limit sets
+    # the floor of modes 1-3 (400 leaves the nearly double pair at
+    # 1.4e-3; 800 at 1.7e-4 from the 6th iteration on), the outer count
+    # that of modes 4-5 (about 2.5x a step: 6.5e-4 at 10, 1.4e-4 at 12)
+    lam, modes, minfo = system.modal(mass, num_eigs=5, max_iter=MODAL_OUTER,
+                                     inner_tol=1e-8,
+                                     inner_max_iter=MODAL_INNER)
+    torch.cuda.synchronize()
+    t_modal = time.perf_counter() - t0
+    text = read("modal", ["fused_yc", "combine"])
+    lam_l = [float(x) for x in lam]
+    res = []
+    for j in range(5):
+        phi = modes[..., j].contiguous()
+        Mphi = mass * phi
+        r = (op64(phi.reshape(-1)).reshape(N, 3) - lam_l[j] * Mphi) * m3
+        res.append(float(torch.linalg.norm(r))
+                   / (lam_l[j] * float(torch.linalg.norm(Mphi * m3))))
+    on_fixed = bool(modes[torch.as_tensor(fixed, device=dev).long()].any())
+    hist = minfo.eigenvalue_history
+    log(f"family modal: 5 modes, {MODAL_OUTER} subspace iterations of 7 "
+        f"columns, inner Jacobi PCG (tol 1e-8, at most {MODAL_INNER} "
+        f"iterations), lumped mass "
+        f"(rho 7800) {t_mass:.2f} s, modal {t_modal:.2f} s; eigenvalues "
+        f"{[f'{x:.9e}' for x in lam_l]}; f64 eigen-residuals "
+        f"||K phi - lam M phi|| / (lam ||M phi||) "
+        f"{[f'{x:.3e}' for x in res]}; non-zero on a fixed node: "
+        f"{on_fixed}; {text}")
+    for i, row in enumerate(hist):
+        log(f"  Ritz values, iteration {i + 1}: "
+            f"{[f'{x:.9e}' for x in row]}")
+    if on_fixed:
+        fail("family modal: a mode is non-zero on a fixed node")
+    if not (np.all(np.isfinite(lam_l)) and max(res) <= 1e-3):
+        fail(f"family modal: eigen-residuals {res} above 1e-3")
+    del system, op, op64, plan, modes, mass, lam
+    torch.cuda.empty_cache()
+
+    # -- 12b. BASELINE config 3 at n = --mixed-n --------------------------
+    m = args.mixed_n
+    t0 = time.perf_counter()
+    coords, tets_all = mg.box_tet(m, m, m)
+    _, wedges_all = mg.box_wedge(m, m, m)
+    tets = tets_all[coords[tets_all].mean(axis=1)[:, 2] < 0.5]
+    wedges = wedges_all[coords[wedges_all].mean(axis=1)[:, 2] > 0.5]
+    top = mg.boundary_nodes(coords, 2, 1.0)
+    grid = top[np.lexsort((coords[top, 1], coords[top, 0]))].reshape(
+        m + 1, m + 1)
+    quads = np.stack([grid[:-1, :-1], grid[1:, :-1], grid[1:, 1:],
+                      grid[:-1, 1:]], axis=-1).reshape(-1, 4).astype(np.int32)
+    del tets_all, wedges_all
+    N = coords.shape[0]
+    force = np.zeros((N, 6))
+    force[top, 0] = 0.01
+    force[top, 2] = -0.02
+    fixed = mg.boundary_nodes(coords, 2, 0.0)
+    blocks = dict(c3d4=tets, c3d6=wedges, s4=quads)
+    fnorm = float(np.linalg.norm(force))
+    t_mesh = time.perf_counter() - t0
+    log(f"family mixed: BASELINE config 3 at n = {m}: {tets.shape[0]} c3d4, "
+        f"{wedges.shape[0]} c3d6, {quads.shape[0]} s4, {N} nodes, [N, 6] "
+        f"state, f64, Jacobi, tol 1e-6 ||b||; mesh {t_mesh:.2f} s")
+    sols = {}
+    for operator, need in (("packed", ["fused_yc", "combine",
+                                        "compress_gather",
+                                        "stiffness_fused"]),
+                           ("assembled", ["stiffness_fused"])):
+        zero()
+        timings = {}
+        u6, info = tt.static_structure_solver(
+            coords, force, fixed, material=FAMILY_MAT, operator=operator,
+            precondition=True, tol=1e-6 * fnorm, max_iter=20000, dtype=f64,
+            device=dev, timings=timings, **blocks)
+        torch.cuda.synchronize()
+        text = read(f"mixed {operator}", need)
+        sols[operator] = (u6, info, timings, text)
+        torch.cuda.empty_cache()
+    model = tt.build_static_model(coords, blocks, FAMILY_MAT, dtype=f64,
+                                  device=dev)
+    d6 = model.diagonal6()
+    P = (d6.abs() > 0).to(f64)
+    P[torch.as_tensor(fixed, device=dev).long()] = 0.0
+    f_t = torch.as_tensor(force, device=dev)
+    for operator, (u6, info, timings, text) in sols.items():
+        it = int(info.iterations)
+        rep = float(info.residual_norm) / fnorm
+        true = float(torch.linalg.norm((f_t - model(u6)) * P)) / fnorm
+        last = float(info.history[it]) / fnorm
+        setup = {k: round(v, 3) for k, v in timings.items() if k != "solve"}
+        log(f"family mixed {operator}: status {int(info.status)}, "
+            f"iterations {it}, residual {rep:.6e} of ||b|| (f64 assembled "
+            f"model {true:.6e}, history's last {last:.6e}); setup {setup} s,"
+            f" solve {timings['solve']:.2f} s "
+            f"({timings['solve'] / max(it, 1) * 1e3:.3f} ms per iteration, "
+            f"derived); {text}")
+        check(f"mixed {operator}", info, rep, true, last)
+    up, ua = sols["packed"][0], sols["assembled"][0]
+    excess = float(((up - ua).abs()
+                    - (2e-5 * ua.abs() + 1e-7 * ua.abs().max())).max())
+    rel = float((up - ua).abs().max() / ua.abs().max())
+    tip_ux = float(ua[torch.as_tensor(top).long(), 0].mean())
+    log(f"family mixed: packed against assembled max |d| / max |u| "
+        f"{rel:.3e}; tip ux mean {tip_ux:.6e}; largest excess over rtol "
+        f"2e-5, atol 1e-7 max|u|: {excess:.3e}")
+    if not excess <= 0.0:
+        fail("family mixed: the packed and assembled solutions differ by "
+             "more than rtol 2e-5, atol 1e-7 max|u|")
+
+    # K1-K3 and K6 at this model's sizes against their plain versions
+    # (after the counts were read), bitwise: the packed system's c3d4
+    # primary on its own plan applied to the packed solution (K1, then
+    # K2 on the same input) and its Jacobi diagonal (K3 and K2); K6 for
+    # the tets and wedges as the assembled model and the packed system's
+    # wedge block hold them
+    msys = tt.PackedMixedSystem(coords, blocks, FAMILY_MAT,
+                                fixed_nodes=fixed, dtype=f64, device=dev)
+    prim = msys.op.primary
+    uX = prim.plan.pack(up[:, :3].contiguous())
+    Yc = prim.fused_stage(uX)
+    ct = torch.as_tensor(coords, dtype=f64, device=dev)
+    plain_k = {et: sk.stiffness_fused_plain(
+        ct, torch.as_tensor(c, device=dev), et, FAMILY_MAT["E"],
+        FAMILY_MAT["nu"]) for et, c in (("c3d4", tets), ("c3d6", wedges))}
+    checks = (
+        ("fused_yc c3d4", Yc,
+         prim.fused_stage(uX, kernel=fk.fused_yc_plain)),
+        ("combine", prim.combine_stage(Yc),
+         prim.combine_stage(Yc, kernel=pk.combine_plain)),
+        ("compress_gather", prim.diagonal(),
+         prim.diagonal(compress=pk.compress_gather_plain,
+                       combine=pk.combine_plain)),
+        ("stiffness_fused c3d4 (assembled)", model.solid_ops[0].K,
+         plain_k["c3d4"]),
+        ("stiffness_fused c3d6 (assembled)", model.solid_ops[1].K,
+         plain_k["c3d6"]),
+        ("stiffness_fused c3d6 (packed)", msys.op.solids[0].K,
+         plain_k["c3d6"]))
+    for name, got, want in checks:
+        torch.cuda.synchronize()
+        if not (got.shape == want.shape and torch.equal(got, want)):
+            fail(f"family mixed: {name} differs from its plain version on "
+                 f"{tuple(want.shape)}: max |d| "
+                 f"{float((got - want).abs().max()):.3e}")
+        log(f"family mixed parity {name}: bitwise equal to its plain "
+            f"version on {tuple(got.shape)} (max |ref| "
+            f"{float(want.abs().max()):.3e})")
+    del model, sols, up, ua, d6, P, f_t, msys, prim, uX, Yc, ct, plain_k
+    del checks
+    torch.cuda.empty_cache()
+
+    # -- 12c. pure-shell plates -------------------------------------------
+    p = args.plate_n
+    for etype, gen in (("s4", mg.grid_quad), ("s3", mg.grid_tri)):
+        coords, conn = gen(p, p)
+        N = coords.shape[0]
+        tip = mg.boundary_nodes(coords, 0, 1.0)
+        fixed = mg.boundary_nodes(coords, 0, 0.0)
+        # the transverse force, an end moment and an in-plane pull: the
+        # Kirchhoff element has no stiffness on w (nor theta_z), so the
+        # transverse force alone is masked out and leaves u = 0
+        force = np.zeros((N, 6))
+        force[tip, 2] = -1e-3
+        force[tip, 4] = 1e-4
+        force[tip, 0] = 1e-3
+        fnorm = float(np.linalg.norm(force))
+        zero()
+        timings = {}
+        u6, info = tt.static_structure_solver(
+            coords, force, fixed, material=FAMILY_MAT, precondition=True,
+            tol=1e-6 * fnorm, max_iter=20000, dtype=f64, device=dev,
+            timings=timings, **{etype: conn})
+        torch.cuda.synchronize()
+        text = read(f"plate {etype}", [])
+        model = tt.build_static_model(coords, {etype: conn}, FAMILY_MAT,
+                                      dtype=f64, device=dev)
+        d6 = model.diagonal6()
+        live = d6.abs() > 0
+        P = live.to(f64)
+        P[torch.as_tensor(fixed, device=dev).long()] = 0.0
+        f_t = torch.as_tensor(force, device=dev)
+        it = int(info.iterations)
+        rep = float(info.residual_norm) / fnorm
+        true = float(torch.linalg.norm((f_t - model(u6)) * P)) / fnorm
+        last = float(info.history[it]) / fnorm
+        dead = bool(u6[~live].any())
+        setup = {k: round(v, 3) for k, v in timings.items() if k != "solve"}
+        log(f"family plate {etype}: grid {p} x {p}, {conn.shape[0]} "
+            f"elements, {N} nodes; status {int(info.status)}, iterations "
+            f"{it}, residual {rep:.6e} of ||b|| (f64 {true:.6e}, history's "
+            f"last {last:.6e}); load on DOFs with stiffness "
+            f"{float(torch.linalg.norm(f_t * live)) / fnorm:.6f} of ||b||; "
+            f"DOFs without stiffness: w {int((~live[:, 2]).sum())}, theta_z "
+            f"{int((~live[:, 5]).sum())}, non-zero there: {dead}; tip ux "
+            f"{float(u6[torch.as_tensor(tip).long(), 0].mean()):.6e}, "
+            f"theta_y {float(u6[torch.as_tensor(tip).long(), 4].mean()):.6e}"
+            f"; setup {setup} s, solve {timings['solve']:.2f} s; {text}")
+        check(f"plate {etype}", info, rep, true, last)
+        if dead:
+            fail(f"family plate {etype}: a DOF without stiffness (w or "
+                 f"theta_z) is non-zero")
+        del model, u6, d6
+        torch.cuda.empty_cache()
+    return ({k: v[0] for k, v in totals.items()},
+            {k: v[1] for k, v in totals.items()})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=55,
                     help="box_tet10(n, n, n): 6 n^3 c3d10 elements")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--phases", default="packed,static,staged,probes,scale",
+    ap.add_argument("--phases",
+                    default="packed,static,staged,probes,scale,family",
                     help="comma-separated subset of packed, static, staged, "
-                    "probes, scale, turns")
+                    "probes, scale, family, turns")
     ap.add_argument("--scale-n", type=int, default=119,
                     help="phase 11's mesh: box_tet10(n, n, n)")
+    ap.add_argument("--mixed-n", type=int, default=64,
+                    help="phase 12's BASELINE config 3 at box n, n, n")
+    ap.add_argument("--plate-n", type=int, default=128,
+                    help="phase 12's s4 and s3 plates: grid n x n")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not phases <= {"packed", "static", "staged", "probes", "scale",
-                      "turns"}:
+                      "family", "turns"}:
         ap.error(f"unknown phases {phases}")
 
     if not torch.cuda.is_available():
@@ -1980,6 +2454,15 @@ def main() -> None:
             if r["name"] in scale_launches:
                 r["scale_launches"] = scale_launches[r["name"]]
         log(f"phase scale: {time.perf_counter() - t0:.1f} s")
+    if "family" in phases:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fam, fam_replayed = family_phase(args, dev)
+        for r in rows:
+            if r["name"] in fam:
+                r["family_launches"] = fam[r["name"]]
+                r["family_replayed"] = fam_replayed[r["name"]]
+        log(f"phase family: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -854,6 +854,147 @@ def test_refine_geometry_on_card(cuda_device):
     assert float((F.cpu() - Fc).abs().max()) <= 1e-12 * float(Fc.abs().max())
 
 
+# ---------------------------------------------------------------------------
+# the rest of the solver family and the mixed system as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _same_info(a, b):
+    assert torch.equal(a[0], b[0])
+    for x, y in zip(a[1], b[1]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+def test_bicgstab_graph_bitwise_vs_eager(cuda_device, dt):
+    """70 BiCGStab iterations (blocks of 32, 32 and 6) replayed as CUDA
+    graphs against the same block run eagerly: iterate, history, status
+    and count bitwise; a second solve replays the same graphs."""
+    from tpufem_torch.solvers.bicgstab import BiCGStabBlock
+    system, bX = _graph_system(cuda_device, dt)
+    eager = BiCGStabBlock(system.op, bX, constraints=system.pc, tol=0.0)
+    eager.graphed = False
+    want = eager.solve(bX, max_iter=70)
+    blk = BiCGStabBlock(system.op, bX, constraints=system.pc, tol=0.0)
+    assert blk.graphed
+    _same_info(blk.solve(bX, max_iter=70), want)
+    assert set(blk.graphs) == {32, 6}
+    _same_info(blk.solve(bX, max_iter=70), want)
+    assert bool(torch.isfinite(want[1].history).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+def test_gmres_cycle_graph_bitwise_vs_eager(cuda_device, dt):
+    """Two GMRES(20) cycles, left-Jacobi, each cycle one CUDA graph
+    replay, against the same cycles run eagerly: bitwise."""
+    from tpufem_torch.solvers.gmres import GMRESCycle
+    system, bX = _graph_system(cuda_device, dt)
+    kw = dict(constraints=system.pc, M_inv=system.jacobi, tol=0.0,
+              restart=20)
+    eager = GMRESCycle(system.op, bX, **kw)
+    eager.graphed = False
+    want = eager.solve(bX, max_iter=40)
+    cyc = GMRESCycle(system.op, bX, **kw)
+    assert cyc.graphed
+    _same_info(cyc.solve(bX, max_iter=40), want)
+    assert set(cyc.graphs) == {20}
+    _same_info(cyc.solve(bX, max_iter=40), want)
+    assert int(want[1].iterations) == 40
+    assert bool(torch.isfinite(want[1].history).all())
+
+
+def _mixed_system(dev):
+    """BASELINE config 3 at n = 3 on the card: the tets packed (K1-K3),
+    the wedges (K6) and an s4 skin bridged; f64."""
+    mg = tpufem_torch.meshgen
+    n = 3
+    coords, tets_all = mg.box_tet(n, n, n)
+    _, wedges_all = mg.box_wedge(n, n, n)
+    top = mg.boundary_nodes(coords, 2, 1.0)
+    grid = top[np.lexsort((coords[top, 1], coords[top, 0]))].reshape(
+        n + 1, n + 1)
+    quads = np.asarray([[grid[i, j], grid[i + 1, j], grid[i + 1, j + 1],
+                         grid[i, j + 1]]
+                        for i in range(n) for j in range(n)], np.int32)
+    blocks = dict(c3d4=tets_all[coords[tets_all].mean(axis=1)[:, 2] < 0.5],
+                  c3d6=wedges_all[coords[wedges_all].mean(axis=1)[:, 2]
+                                  > 0.5], s4=quads)
+    mat = {"E": 200.0, "nu": NU, "membrane": (200.0, NU, 0.05),
+           "bending": (200.0, NU, 0.05)}
+    force = np.zeros((coords.shape[0], 6))
+    force[top, 0], force[top, 2] = 0.01, -0.02
+    return coords, blocks, mat, force, mg.boundary_nodes(coords, 2, 0.0)
+
+
+@pytest.mark.cuda
+def test_mixed_cgblock_graph_bitwise_vs_eager(cuda_device):
+    """The mixed system's PCG block (packed primary, K6 wedges and the
+    shell skin bridged through [N, 3] / [N, 6]) captured and replayed:
+    bitwise equal to the eager block; and the solve on the card against
+    the CPU's (1e-8 relative at a tolerance of 1e-12 ||b||)."""
+    from tpufem_torch.solvers.cg import CGBlock
+    coords, blocks, mat, force, fixed = _mixed_system(cuda_device)
+    system = tpufem_torch.PackedMixedSystem(
+        coords, blocks, mat, fixed_nodes=fixed, dtype=torch.float64,
+        device=cuda_device)
+    bX = system.pc.project_residual(system.pack6(force))
+    mk = dict(constraints=system.pc, M_inv=system.M_inv, tol=0.0)
+    kw = dict(max_iter=70, return_state=True)
+    eager = CGBlock(system.op, bX, **mk)
+    eager.graphed = False
+    want = eager.solve(bX, **kw)
+    blk = CGBlock(system.op, bX, **mk)
+    k6 = tsk.STIFFNESS_FUSED.launches
+    _same_cg(blk.solve(bX, **kw), want)
+    assert tsk.STIFFNESS_FUSED.launches == k6      # K is built once
+    counts = {K.name: n for K, n in blk.graphs[32].counts}
+    assert counts["fused_yc"] > 0 and counts["combine"] > 0
+    tol = 1e-12 * float(np.linalg.norm(force))
+    ug, ig = system.solve(force, tol=tol, max_iter=3000)
+    cpu = tpufem_torch.PackedMixedSystem(
+        coords, blocks, mat, fixed_nodes=fixed, dtype=torch.float64,
+        device="cpu")
+    uc, ic = cpu.solve(force, tol=tol, max_iter=3000)
+    assert int(ig.status) == int(ic.status) == 1
+    assert float((ug.cpu() - uc).abs().max() / uc.abs().max()) <= 1e-8
+
+
+@pytest.mark.cuda
+def test_packed_constraints_comp3_on_card(cuda_device):
+    """PackedConstraints.build(comp=0|3) on a plan on the card equals the
+    build on the CPU, table by table, and enforces the same values (to
+    1e-14: RBE3's row sums run in the card's reduction order)."""
+    mg = tpufem_torch.meshgen
+    coords, conn = mg.box_tet(3, 3, 3)
+    N = coords.shape[0]
+    top = mg.boundary_nodes(coords, 2, 1.0)
+    cons = tpufem_torch.Constraints.build(
+        N, 6, [{"node": 0, "dofs": [0, 4], "value": 0.5},
+               {"node": 1, "dofs": [3, 4, 5], "value": 0.0}],
+        [{"master": int(top[0]), "slaves": [int(t) for t in top[1:3]],
+          "dofs": [1, 3, 5]}],
+        [{"master": int(top[-1]), "slaves": [int(t) for t in top[3:6]],
+          "dofs": [2, 4], "weights": [1.0, 2.0, 0.5]}])
+    plans = {d: tpp.PackedPlan.build(coords, conn, N, device=d)
+             for d in ("cpu", cuda_device)}
+    u6 = torch.as_tensor(np.random.default_rng(6).standard_normal((N, 6)))
+    for comp in (0, 3):
+        pcs = {d: tpp.PackedConstraints.build(cons, plans[d], torch.float64,
+                                              comp=comp) for d in plans}
+        for name in ("mask", "spc_const", "rbe2_slave", "rbe2_master",
+                     "rbe3_slave", "rbe3_weights", "rbe3_table",
+                     "rbe3_master", "rbe3_wsum"):
+            a, b = getattr(pcs["cpu"], name), getattr(pcs[cuda_device], name)
+            assert (a is None) == (b is None), name
+            if a is not None:
+                assert b.device.type == "cuda" and torch.equal(a, b.cpu())
+        got = {d: plans[d].unpack(pcs[d].apply_state(plans[d].pack(
+            u6[:, comp:comp + 3].to(d)))) for d in plans}
+        assert torch.allclose(got[cuda_device].cpu(), got["cpu"],
+                              rtol=1e-14, atol=0.0)
+
+
 @pytest.mark.cuda
 def test_graph_capture_failure_raises(cuda_device):
     """A block that reads a value on the host cannot be captured: the

@@ -140,7 +140,13 @@ _ALL_MODULES = [
     "tpufem_torch.ops.probe_kernels", "tpufem_torch.ops.probe_reshape",
     "tpufem_torch.ops.probe_rowdma", "tpufem_torch.ops.probe_planar_io",
     "tpufem_torch.scripts", "tpufem_torch.scripts.solve_scale",
+    "tpufem_torch.scripts.modal_sweep",
     "tpufem_torch.examples", "tpufem_torch.examples.refined_solve",
+    "tpufem_torch.elements.shell", "tpufem_torch.elements.dispatch",
+    "tpufem_torch.topology", "tpufem_torch.topology.convert",
+    "tpufem_torch.ops.packed_mixed", "tpufem_torch.solvers.bicgstab",
+    "tpufem_torch.solvers.gmres", "tpufem_torch.solvers.newton",
+    "tpufem_torch.solvers.modal", "tpufem_torch.solvers.legacy",
 ]
 
 

@@ -18,14 +18,26 @@ kernels:
   stiffness_fused for k <= 10 types), the scatter-plan and the clustered
   operators (kernels cluster_expand, cluster_compress), Jacobi PCG through
   static_structure_solver; with mass and stress recovery;
+* Kirchhoff shells (s3, s4: elements.shell, ShellOperator) and the mixed
+  solid + shell driver: static_structure_solver with shell blocks, and
+  ops.packed_mixed.PackedMixedSystem for operator="packed" with several
+  blocks (the largest solid block on kernels fused_yc, combine and
+  compress_gather, the others on stiffness_fused);
+* the rest of the solver family: bicgstab, gmres, newton_raphson,
+  modal_solver / naive_modal_solver, masked_cg and the compensated dot
+  (cg's dot_dtype="compensated"), also on the packed operator
+  (PackedSystem.solve_bicgstab, solve_gmres, modal), and the
+  reference-signature entry points of solvers.legacy;
 * the probes of tpufem's scripts/: the [64, 32] <-> [16, 128] relayouts
   (ops.probe_reshape; kernels relayout_fwd, relayout_inv), indexed row
   reads against a gather (ops.probe_rowdma; kernel row_accumulate) and
   the planar element layout's write and read (ops.probe_planar_io;
   kernels planar_write, planar_read).
 
-Every PCG solve runs its loop in 32-iteration blocks that the card
-replays as CUDA graphs (solvers.cg.CGBlock).
+Every PCG and BiCGStab solve runs its loop in 32-iteration blocks, and
+GMRES each restart cycle, that the card replays as CUDA graphs
+(solvers.cg.CGBlock, solvers.bicgstab.BiCGStabBlock,
+solvers.gmres.GMRESCycle).
 
 The JAX package ``tpufem`` stays the reference; nothing here imports it.
 Entry points (the plans' and operators' build functions, PackedSystem,
@@ -43,8 +55,12 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .core.device import resolve_device  # noqa: E402
-from .core.materials import elasticity_matrix, lame_parameters  # noqa: E402
-from .elements import solid  # noqa: E402
+from .core.materials import (elasticity_matrix,  # noqa: E402
+                             kirchhoff_D_matrix, lame_parameters)
+from .elements import dispatch, shell, solid  # noqa: E402
+from .elements.shell import (ShellOperator, local_frames,  # noqa: E402
+                             shell_nodal_forces, shell_postprocess_values,
+                             shell_stiffness, shell_stress)
 from .elements.tables import ElementTable, element_table  # noqa: E402
 from .ops import cuda  # noqa: E402
 from .ops.cluster_kernels import (CLUSTER_COMPRESS, CLUSTER_EXPAND,  # noqa: E402
@@ -62,17 +78,26 @@ from .ops.probe_kernels import (PLANAR_READ, PLANAR_WRITE,  # noqa: E402
 from .ops.packed import (BlockJacobi, PackedConstraints,  # noqa: E402
                          PackedPartialOperator, PackedPlan, PackedSystem,
                          block_apply, invert_block_planes)
+from .ops.packed_mixed import (MixedConstraints,  # noqa: E402
+                               PackedMixedOperator, PackedMixedSystem)
 from .ops.packed_kernels import (COMBINE, COMPRESS_GATHER,  # noqa: E402
                                  COMPRESS_PLANAR, EXPAND, EXPAND_PLANAR,
                                  combine, compress_gather, compress_planar,
                                  expand, expand_planar)
 from .ops.scatter import CombinePlan, ScatterPlan  # noqa: E402
 from .ops.stiffness_kernels import STIFFNESS_FUSED, stiffness_fused  # noqa: E402
-from .solvers.cg import SolveInfo, cg  # noqa: E402
+from .solvers import legacy, modal  # noqa: E402
+from .solvers.bicgstab import bicgstab  # noqa: E402
+from .solvers.cg import SolveInfo, cg, comp_vdot, masked_cg  # noqa: E402
 from .solvers.constraints import Constraints  # noqa: E402
+from .solvers.gmres import gmres  # noqa: E402
+from .solvers.modal import (lumped_mass_diagonal, modal_solver,  # noqa: E402
+                            naive_modal_solver)
+from .solvers.newton import newton_raphson  # noqa: E402
 from .solvers.refine import F64Operator, RefinedSystem, RefineInfo  # noqa: E402
 from .solvers.static import (StaticModel, build_static_model,  # noqa: E402
                              static_structure_solver)
+from .topology import convert as topo_convert  # noqa: E402
 from .utils import meshgen  # noqa: E402
 
 # the CUDA kernels of the refined packed solve, in the order of the apply
@@ -93,18 +118,23 @@ __all__ = [
     "COMPRESS_GATHER", "COMPRESS_PLANAR", "ClusterPlan", "ClusteredOperator",
     "CombinePlan", "Constraints", "EXPAND", "EXPAND_PLANAR", "ElementTable",
     "F64Operator", "FUSED_YC", "KERNELS", "MatrixFreeOperator",
-    "PACKED_KERNELS", "PLANAR_READ", "PLANAR_WRITE", "PROBE_KERNELS",
-    "PackedConstraints", "PackedPartialOperator", "PackedPlan",
+    "MixedConstraints", "PACKED_KERNELS", "PLANAR_READ", "PLANAR_WRITE",
+    "PROBE_KERNELS", "PackedConstraints", "PackedMixedOperator",
+    "PackedMixedSystem", "PackedPartialOperator", "PackedPlan",
     "PackedSystem", "RELAYOUT_FWD", "RELAYOUT_INV", "ROW_ACCUMULATE",
     "RefineInfo", "RefinedSystem", "STAGED_KERNELS", "STATIC_KERNELS",
-    "STIFFNESS_FUSED", "ScatterPlan",
-    "SolveInfo", "StaticModel", "block_apply", "block_operator",
+    "STIFFNESS_FUSED", "ScatterPlan", "ShellOperator", "SolveInfo",
+    "StaticModel", "bicgstab", "block_apply", "block_operator",
     "build_static_model", "cg", "cluster_compress", "cluster_expand",
-    "cluster_spmv", "combine", "compress_gather", "compress_planar", "cuda",
-    "diagonal_preconditioner", "elasticity_matrix", "element_table",
-    "expand", "expand_planar", "fused_yc", "invert_block_planes",
-    "lame_parameters", "meshgen", "nodal_forces", "planar_read",
-    "planar_write", "probe_fused", "relayout_fwd", "relayout_inv",
-    "resolve_device", "row_accumulate", "solid", "static_structure_solver",
-    "stiffness_fused",
+    "cluster_spmv", "combine", "comp_vdot", "compress_gather",
+    "compress_planar", "cuda", "diagonal_preconditioner", "dispatch",
+    "elasticity_matrix", "element_table", "expand", "expand_planar",
+    "fused_yc", "gmres", "invert_block_planes", "kirchhoff_D_matrix",
+    "lame_parameters", "legacy", "local_frames", "lumped_mass_diagonal",
+    "masked_cg", "meshgen", "modal", "modal_solver", "naive_modal_solver",
+    "newton_raphson", "nodal_forces", "planar_read", "planar_write",
+    "probe_fused", "relayout_fwd", "relayout_inv", "resolve_device",
+    "row_accumulate", "shell", "shell_nodal_forces",
+    "shell_postprocess_values", "shell_stiffness", "shell_stress", "solid",
+    "static_structure_solver", "stiffness_fused", "topo_convert",
 ]

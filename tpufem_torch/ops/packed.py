@@ -1065,10 +1065,13 @@ class PackedConstraints:
     PackedConstraints): a 0/1 mask (padding lanes are constrained by
     construction), the SPC values as a packed field, and the RBE2/RBE3
     tables of a solvers.constraints.Constraints with every DOF translated
-    to its packed flat position (row * 384 + comp * 128 + node % 128 after
-    the plan's renumbering).  Rotation DOFs are dropped (the packed plane
-    carries translations).  RBE3's segment sum is a padded table summed
-    along its rows, a fixed order (solvers.constraints.rbe3_average)."""
+    to its packed flat position (row * 384 + c * 128 + node % 128 after
+    the plan's renumbering, c the component within the plane).  A plane
+    carries the three DOFs [comp, comp + 3) of each node: the translations
+    (comp 0) or, in the mixed solid + shell system, the rotations (comp
+    3); the rows of the other DOFs are dropped (RBE2/RBE3 couple
+    component-wise).  RBE3's segment sum is a padded table summed along
+    its rows, a fixed order (solvers.constraints.rbe3_average)."""
 
     def __init__(self, mask: torch.Tensor):
         self.mask = mask
@@ -1084,10 +1087,17 @@ class PackedConstraints:
     def has_sets(self) -> bool:
         return self.rbe2_slave is not None or self.rbe3_master is not None
 
+    @property
+    def free_mask(self) -> torch.Tensor:
+        """Flat [Nb * 384] 1.0/0.0 free-DOF mask (the modal solver's
+        interface; padding lanes are constrained)."""
+        return self.mask.reshape(-1)
+
     @staticmethod
-    def build(cons, plan: PackedPlan, dtype=torch.float32
+    def build(cons, plan: PackedPlan, dtype=torch.float32, comp: int = 0
               ) -> "PackedConstraints":
-        """From a solvers.constraints.Constraints (3- or 6-DOF tables)."""
+        """From a solvers.constraints.Constraints (3- or 6-DOF tables);
+        comp (0 or 3) picks the plane's DOF window [comp, comp + 3)."""
         from ..solvers.constraints import rbe3_table
         nd = cons.dof_per_node
         npdt = torch.empty((), dtype=dtype).numpy().dtype
@@ -1096,18 +1106,19 @@ class PackedConstraints:
 
         def pidx(dofs):
             dofs = np.asarray(dofs, np.int64)
-            node, d = dofs // nd, dofs % nd
+            node, d = dofs // nd, dofs % nd - comp
             nn = new_from_old[node]
             return (nn // BLK) * ROW + d * BLK + nn % BLK
 
         def keep(dofs):
-            return np.asarray(dofs, np.int64) % nd < 3
+            d = np.asarray(dofs, np.int64) % nd
+            return (d >= comp) & (d < comp + 3)
 
         def t(a, dt=torch.long):
             return torch.as_tensor(np.asarray(a)).to(device=dev, dtype=dt)
 
-        mask_n = np.asarray(cons.mask2d)[:, :3].astype(npdt)
-        spc_n = np.asarray(cons.spc_const2d)[:, :3].astype(npdt)
+        mask_n = np.asarray(cons.mask2d)[:, comp:comp + 3].astype(npdt)
+        spc_n = np.asarray(cons.spc_const2d)[:, comp:comp + 3].astype(npdt)
         out = PackedConstraints(t(plan.pack_np(mask_n), dtype))
         if np.any(spc_n):
             out.spc_const = t(plan.pack_np(spc_n), dtype)
@@ -1116,8 +1127,8 @@ class PackedConstraints:
         if k2.any():
             out.rbe2_slave = t(pidx(r2s[k2]))
             out.rbe2_master = t(pidx(np.asarray(cons.rbe2_master_dofs)[k2]))
-        # rotation-DOF RBE3 rows are dropped entirely; the constraint ids
-        # are renumbered over the translational masters
+        # the other plane's RBE3 rows are dropped entirely; the constraint
+        # ids are renumbered over this plane's masters
         r3m = np.asarray(cons.rbe3_master_dofs, np.int64)
         km = keep(r3m)
         if km.any():
@@ -1177,7 +1188,10 @@ class PackedSystem:
     once as a CUDA graph and replayed by every solve; `warm` and
     `warm_chunked` capture it without running anything, as tpufem's AOT
     compile does.  The per-call prologue (r = P(b - A u), the resume) runs
-    eagerly.  On the CPU the blocks run eagerly and `warm*` do nothing."""
+    eagerly.  On the CPU the blocks run eagerly and `warm*` do nothing.
+    The rest of tpufem's solver family runs on the same operator and
+    constraints: solve_bicgstab, solve_gmres (left Jacobi when the system
+    has scalar Jacobi), mass_packed and modal."""
 
     def __init__(self, op: PackedPartialOperator, fixed_nodes=None,
                  precondition="jacobi", constraints=None):
@@ -1193,6 +1207,7 @@ class PackedSystem:
         else:
             self.pc = PackedConstraints.fixed(plan, fixed_nodes, dtype)
         self.mask = self.pc.mask
+        self.precondition = precondition
         if precondition == "block":
             self.M_inv = BlockJacobi.build(op, mask=self.mask)
         elif precondition:              # "jacobi" / True
@@ -1204,15 +1219,26 @@ class PackedSystem:
             self.M_inv = torch.ones_like(self.mask)
         self._blocks = {}
 
-    def _block(self, tol, dot_dtype):
-        """The CGBlock of this (tol, dot_dtype), made at first use."""
-        from ..solvers.cg import CGBlock
-        key = (float(tol), str(dot_dtype))
+    @property
+    def jacobi(self):
+        """The scalar-Jacobi array, or None under block Jacobi or none:
+        the M_inv that GMRES and the modal solver take (tpufem's rule)."""
+        return (self.M_inv if self.precondition and not callable(self.M_inv)
+                else None)
+
+    def _cached(self, key, make):
+        """The solver block of `key`, made at first use (on the card its
+        graphs are captured once and replayed by every solve)."""
         if key not in self._blocks:
-            self._blocks[key] = CGBlock(
-                self.op, self.mask, constraints=self.pc, M_inv=self.M_inv,
-                tol=tol, dot_dtype=dot_dtype)
+            self._blocks[key] = make()
         return self._blocks[key]
+
+    def _block(self, tol, dot_dtype):
+        """The CGBlock of this (tol, dot_dtype)."""
+        from ..solvers.cg import CGBlock
+        return self._cached((float(tol), str(dot_dtype)), lambda: CGBlock(
+            self.op, self.mask, constraints=self.pc, M_inv=self.M_inv,
+            tol=tol, dot_dtype=dot_dtype))
 
     def _capture(self, tol, max_iter, dot_dtype) -> None:
         from ..solvers.cg import CHECK_EVERY
@@ -1309,3 +1335,61 @@ class PackedSystem:
                         np.concatenate(hists) if hists else
                         info.history.cpu().numpy())
         return self.op.plan.unpack(uX), out
+
+    # -- the rest of the solver family on the packed operator -------------
+    # (each keeps its block per configuration in _cached)
+    def solve_bicgstab(self, b, x0=None, tol: float = 1e-8,
+                       max_iter: int = 1000):
+        """BiCGStab in the packed layout (no preconditioner, as in
+        tpufem); tol is RELATIVE to ||r0||.  b [N, 3] -> (u [N, 3],
+        SolveInfo)."""
+        from ..solvers.bicgstab import BiCGStabBlock
+        blk = self._cached(("bicgstab", float(tol)), lambda: (
+            BiCGStabBlock(self.op, self.mask, constraints=self.pc, tol=tol)))
+        bX, x0X = self._rhs(b, x0)
+        uX, info = blk.solve(self.pc.project_residual(bX), x0=x0X,
+                             max_iter=max_iter)
+        return self.op.plan.unpack(uX), info
+
+    def solve_gmres(self, b, x0=None, tol: float = 1e-8,
+                    max_iter: int = 1000, restart: int = 50):
+        """Restarted GMRES in the packed layout, left-Jacobi when the
+        system has the scalar-Jacobi preconditioner (tol and the history
+        are then on ||M^-1 r||).  b [N, 3] -> (u [N, 3], SolveInfo)."""
+        from ..solvers.gmres import GMRESCycle
+        blk = self._cached(
+            ("gmres", float(tol), int(restart)), lambda: GMRESCycle(
+                self.op, self.mask, constraints=self.pc, M_inv=self.jacobi,
+                tol=tol, restart=restart))
+        bX, x0X = self._rhs(b, x0)
+        uX, info = blk.solve(self.pc.project_residual(bX), x0=x0X,
+                             max_iter=max_iter)
+        return self.op.plan.unpack(uX), info
+
+    def mass_packed(self, mass_nodal, clamp: float = 1e-12) -> torch.Tensor:
+        """Nodal lumped mass [N] or [N, 3] -> packed flat [Nb * 384]
+        diagonal (padding lanes clamped positive: they carry no modes, the
+        constraint mask zeroes them)."""
+        Mn = (mass_nodal.cpu().numpy() if isinstance(mass_nodal, torch.Tensor)
+              else np.asarray(mass_nodal))
+        if Mn.ndim == 1:
+            Mn = np.repeat(Mn[:, None], 3, axis=1)
+        npdt = torch.empty((), dtype=self.mask.dtype).numpy().dtype
+        X = self.op.plan.pack_np(Mn.astype(npdt))
+        return torch.as_tensor(np.maximum(X, clamp).reshape(-1),
+                               device=self.mask.device)
+
+    def modal(self, mass_nodal, num_eigs: int = 5, **kw):
+        """Smallest modes of K phi = lambda M phi through the packed
+        operator (solvers.modal.modal_solver, the scalar-Jacobi inner PCG
+        when the system has it).  Returns (eigenvalues [k], modes
+        [N, 3, k], ModalInfo)."""
+        from ..solvers.modal import modal_solver
+        plan = self.op.plan
+        nb = plan.meta.n_blocks
+        lam, modes, info = modal_solver(
+            self.op, self.mass_packed(mass_nodal), (nb, ROW), num_eigs,
+            constraints=self.pc, precondition=self.jacobi, **kw)
+        out = torch.stack([plan.unpack(modes[:, j].reshape(nb, ROW))
+                           for j in range(num_eigs)], dim=-1)
+        return lam, out, info

@@ -14,6 +14,13 @@ place, and writes its part of the history into a block buffer that the
 host copies out after it), so on a CUDA device each block length is
 captured once as a CUDA graph and replayed (``ops.cuda.Graph``); on the
 CPU the same block function runs eagerly.  A capture that fails raises.
+GraphedBlock holds that capture-and-replay machinery for every solver
+whose loop body runs this way (cg, bicgstab, gmres).
+
+dot_dtype="compensated" takes each dot product by comp_vdot (Dekker's
+two-product and a two-sum cascade over contiguous halves, in b's dtype:
+about twice its precision); masked_cg is cg with a 0/1 mask as its
+constraints.
 """
 from __future__ import annotations
 
@@ -43,6 +50,56 @@ def _noop(x):
     return x
 
 
+def dot(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """sum(a * c) over all entries, a 0-d tensor (bicgstab's and gmres's
+    dot; tpufem's jnp.vdot on real arrays)."""
+    return torch.sum(a * c)
+
+
+def _two_sum(a, b):
+    """Error-free transform: a + b = s + err exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)
+    return s, err
+
+
+def _two_prod(a, b):
+    """Error-free product by Dekker's split (no FMA: each product and sum
+    is its own torch op, which nothing contracts)."""
+    p = a * b
+    t = a * 4097.0
+    ah = t - (t - a)
+    al = a - ah
+    t = b * 4097.0
+    bh = t - (t - b)
+    bl = b - bh
+    err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    return p, err
+
+
+def comp_vdot(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Dot product with about twice the accuracy of the inputs' dtype, in
+    that dtype (tpufem's comp_vdot): Dekker's two-product for the
+    products, then a pairwise two-sum cascade over contiguous halves that
+    carries the rounding errors in a low-order part.  Returns a 0-d
+    tensor of a's dtype; the shapes, hence the cascade, are fixed, so a
+    CUDA graph can capture it."""
+    hi, lo = _two_prod(a.reshape(-1), c.reshape(-1))
+    n = hi.shape[0]
+    while n > 1:
+        if n % 2:
+            hi = torch.cat([hi, hi.new_zeros(1)])
+            lo = torch.cat([lo, lo.new_zeros(1)])
+            n += 1
+        h = n // 2
+        s, e = _two_sum(hi[:h], hi[h:])
+        lo = lo[:h] + lo[h:] + e
+        hi = s
+        n = h
+    return (hi + lo)[0]
+
+
 class CGState:
     """The loop's state as device tensors that a block updates in place:
     u, r, p (shaped like b), rz, hlast (the last recorded ||r||), status
@@ -63,7 +120,39 @@ class CGState:
         self.i = torch.empty((), dtype=torch.int32, device=like.device)
 
 
-class CGBlock:
+class GraphedBlock:
+    """A solver's loop body over state buffers that it updates in place:
+    `run(n)` runs `body(n)`.  On a CUDA device each n is captured once as
+    a CUDA graph (the graphs share one memory pool) and replayed;
+    `capture(n)` captures without running anything.  A capture that fails
+    raises.  CGBlock, solvers.bicgstab.BiCGStabBlock and
+    solvers.gmres.GMRESCycle are such bodies."""
+
+    def __init__(self, device: torch.device):
+        self.graphed = device.type == "cuda"
+        self.graphs = {}
+
+    def body(self, n: int) -> None:
+        raise NotImplementedError
+
+    def capture(self, n: int) -> None:
+        """Capture the n-step body as a CUDA graph (runs nothing); nothing
+        on the CPU."""
+        if self.graphed and n not in self.graphs:
+            from ..ops.cuda import Graph
+            pool = next(iter(self.graphs.values())).pool() \
+                if self.graphs else None
+            self.graphs[n] = Graph(lambda: self.body(n), pool=pool)
+
+    def run(self, n: int) -> None:
+        if not self.graphed:
+            self.body(n)
+            return
+        self.capture(n)
+        self.graphs[n].replay()
+
+
+class CGBlock(GraphedBlock):
     """cg's loop body: `run(n)` advances a CGState by n <= CHECK_EVERY
     iterations.  On a CUDA device each n is captured once as a CUDA graph
     over the state's buffers (the graphs share one memory pool) and
@@ -87,6 +176,7 @@ class CGBlock:
         self.record = bool(record_history)
         self.dtype = like.dtype
         self.ddt = dot_dtype or like.dtype
+        super().__init__(like.device)
         self.project = constraints.project_residual if constraints else _noop
         self.set_state = constraints.apply_state if constraints else _noop
         if M_inv is None:
@@ -98,10 +188,10 @@ class CGBlock:
         self.project(like)
         self.set_state(like)
         self.state = CGState(like)
-        self.graphed = like.device.type == "cuda"
-        self.graphs = {}
 
     def vdot(self, a, c):
+        if isinstance(self.ddt, str) and self.ddt in ("compensated", "kahan"):
+            return comp_vdot(a, c).to(self.dtype)
         return torch.sum(a.to(self.ddt) * c.to(self.ddt)).to(self.dtype)
 
     def body(self, n: int) -> None:
@@ -152,22 +242,6 @@ class CGBlock:
             buf = getattr(st, name)
             if val is not buf:
                 buf.copy_(val)
-
-    def capture(self, n: int) -> None:
-        """Capture the n-iteration block as a CUDA graph (runs nothing);
-        nothing on the CPU."""
-        if self.graphed and n not in self.graphs:
-            from ..ops.cuda import Graph
-            pool = next(iter(self.graphs.values())).pool() \
-                if self.graphs else None
-            self.graphs[n] = Graph(lambda: self.body(n), pool=pool)
-
-    def run(self, n: int) -> None:
-        if not self.graphed:
-            self.body(n)
-            return
-        self.capture(n)
-        self.graphs[n].replay()
 
     def solve(self, b: torch.Tensor, *, x0: Optional[torch.Tensor] = None,
               max_iter: int = 1000, resume_state=None,
@@ -239,6 +313,7 @@ def cg(A: Callable, b: torch.Tensor, *, constraints=None, M_inv=None,
     project_residual; M_inv: a Jacobi array broadcastable to b, or a
     callable r -> z; tol: absolute tolerance on ||r||; dot_dtype:
     accumulate the dot products in this dtype (vectors stay in b's).
+    "compensated" (or "kahan") takes them by comp_vdot.
     resume_state=(p, rz) continues a previous call's recurrence exactly
     (rz <= 0 means a fresh start, p0 = z0); return_state=True also returns
     (p, rz) for the next call.  One CGBlock serves this call; a caller
@@ -249,3 +324,21 @@ def cg(A: Callable, b: torch.Tensor, *, constraints=None, M_inv=None,
                     dot_dtype=dot_dtype)
     return block.solve(b, x0=x0, max_iter=max_iter,
                        resume_state=resume_state, return_state=return_state)
+
+
+class _MaskConstraint:
+    def __init__(self, mask):
+        self.mask = mask
+
+    def project_residual(self, r):
+        return r * self.mask
+
+    def apply_state(self, u):
+        return u * self.mask
+
+
+def masked_cg(A: Callable, b: torch.Tensor, mask, **kw):
+    """cg with a 0/1 mask (a tensor broadcastable to b) in place of index
+    assignment (tpufem's masked_cg): the state and the residual are
+    multiplied by it."""
+    return cg(A, b, constraints=_MaskConstraint(mask), **kw)

@@ -1,21 +1,25 @@
-"""Top-level static solver for solid blocks: assembled element stiffness,
-a matrix-free operator and a Jacobi PCG solve.
+"""Top-level static driver: mixed solid + shell assembly and a Jacobi PCG
+solve (the port of tpufem/solvers/static.py, the reference's
+static_structure_solver API).
 
-The port of tpufem/solvers/static.py (the reference's
-static_structure_solver API).  The state is [N, 6] (solids contribute to
-the translational columns); DOFs with no stiffness (the rotations of a
-solid model) are masked out of the Krylov space by the `live` mask.  Two
-operators: "assembled" (MatrixFreeOperator over a ScatterPlan) and
-"clustered" (ClusteredOperator, kernels K7a/K7b); both on the element K of
-solid.stiffness (kernel K6 for k <= 10 types).  PyTorch runs eagerly, so
-there is no jit: setup runs once and cg loops on the device.
+The state is [N, 6]: solids contribute to the translational columns,
+Kirchhoff shells (s3, s4) to all six.  DOFs with no stiffness (the
+rotations of a solid model, the drilling theta_z of a shell) are masked
+out of the Krylov space by the `live` mask.  Two assembled operators:
+"assembled" (MatrixFreeOperator over a ScatterPlan) and "clustered"
+(ClusteredOperator, kernels K7a/K7b, for the solid blocks); both on the
+element K of solid.stiffness (kernel K6 for k <= 10 types); shells run
+elements.shell.ShellOperator.  PyTorch runs eagerly, so there is no jit:
+setup runs once and cg loops on the device.
 
 operator="packed" solves one solid block on the packed operator
-(ops.packed.PackedSystem: SPC/RBE2/RBE3 through PackedConstraints, PCG as
-CUDA graphs on the card) and returns [N, 6] as tpufem does.
+(ops.packed.PackedSystem) and several blocks, or solids with shells, on
+ops.packed_mixed.PackedMixedSystem (the largest solid block packed, the
+rest bridged through [N, 3] / [N, 6] at each apply); SPC/RBE2/RBE3
+through PackedConstraints, PCG as CUDA graphs on the card.  Both return
+[N, 6] as tpufem does.
 
-Not ported yet: shell blocks and the mixed solid/shell model, also on the
-packed operator (ROADMAP §1 queue item 6), and operator="partial" (item 7).
+Not ported yet: operator="partial" (ROADMAP §1 queue item 7).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..elements import shell as shell_mod
 from ..elements import solid as solid_mod
 from ..elements.tables import SHELL_TYPES, SOLID_TYPES
 from ..ops.operator import MatrixFreeOperator
@@ -37,16 +42,19 @@ OPERATORS = ("assembled", "clustered", "packed")
 
 
 class StaticModel(torch.nn.Module):
-    """Assembled solid-element model: an operator on u[N, 6]."""
+    """Assembled mixed-element model: an operator on u [N, 6]."""
 
-    def __init__(self, solid_ops):
+    def __init__(self, solid_ops, shell_ops=()):
         super().__init__()
         self.solid_ops = torch.nn.ModuleList(solid_ops)
+        self.shell_ops = torch.nn.ModuleList(shell_ops)
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
         F = torch.zeros_like(u)
         for op in self.solid_ops:
             F[:, :3] += op(u[:, :3])
+        for op in self.shell_ops:
+            F = F + op(u)
         return F
 
     def diagonal6(self) -> torch.Tensor:
@@ -57,6 +65,9 @@ class StaticModel(torch.nn.Module):
             if d6 is None:
                 d6 = d.new_zeros((d.shape[0], 6))
             d6[:, :3] += d
+        for op in self.shell_ops:
+            d = op.diagonal().reshape(-1, 6)
+            d6 = d if d6 is None else d6 + d
         return d6
 
     def jacobi_preconditioner(self, d6: Optional[torch.Tensor] = None
@@ -77,32 +88,25 @@ def _check_blocks(blocks: Dict, operator: str) -> None:
         raise ValueError(f"operator must be one of {OPERATORS}, got "
                          f"{operator!r}")
     for et in blocks:
-        if et.lower() in SHELL_TYPES:
-            raise NotImplementedError(
-                f"shell block {et!r}: shells and the mixed solid/shell "
-                f"model are not ported yet (ROADMAP §1 queue item 6)")
-        if et.lower() not in SOLID_TYPES:
+        if et.lower() not in SOLID_TYPES + SHELL_TYPES:
             raise ValueError(f"Unsupported element type: {et}")
-    if operator == "packed" and len(blocks) != 1:
-        raise NotImplementedError(
-            f"operator='packed' with {len(blocks)} blocks: the mixed "
-            f"packed system (several solid blocks, or solids and shells) "
-            f"is not ported yet (ROADMAP §1 queue item 6)")
 
 
 def build_static_model(coords, blocks: Dict[str, np.ndarray], material: dict,
                        dtype=None, operator: str = "assembled", device=None,
                        timings: Optional[dict] = None) -> StaticModel:
-    """Per-block element stiffness and operators for solid blocks.
+    """Per-block element stiffness and operators, solid and shell blocks.
 
-    blocks: {etype: connectivity [M, k]} with etype in SOLID_TYPES;
-    material: {'E', 'nu'}; device=None means the CUDA card.  timings, when
-    given, gets the seconds of each stage ("stiffness", "plans",
-    "operator"), each ending in a device synchronise."""
+    blocks: {etype: connectivity [M, k]} with etype in SOLID_TYPES or
+    SHELL_TYPES; material: {'E', 'nu'} for solids, {'membrane', 'bending'}
+    ((E, nu, t) triples) for shells; device=None means the CUDA card.
+    timings, when given, gets the seconds of each stage ("stiffness",
+    "plans", "operator"), each ending in a device synchronise."""
     _check_blocks(blocks, operator)
     if operator == "packed":
         raise ValueError("operator='packed' has no assembled model: "
-                         "static_structure_solver solves it on PackedSystem")
+                         "static_structure_solver solves it on PackedSystem "
+                         "or PackedMixedSystem")
     dev = resolve_device(device)
     coords_t = torch.as_tensor(coords if isinstance(coords, torch.Tensor)
                                else np.asarray(coords), device=dev)
@@ -117,14 +121,26 @@ def build_static_model(coords, blocks: Dict[str, np.ndarray], material: dict,
         t[stage] += time.perf_counter() - t0
         return time.perf_counter()
 
-    ops = []
+    ops, shells = [], []
     for et, conn in blocks.items():
+        et = et.lower()
         conn_np = np.asarray(conn)
+        conn_t = torch.as_tensor(conn_np, device=dev)
         t0 = time.perf_counter()
-        K = solid_mod.stiffness(coords_t, torch.as_tensor(conn_np, device=dev),
-                                et.lower(), material["E"], material["nu"])
+        if et in SHELL_TYPES:
+            K = shell_mod.shell_stiffness(coords_t, conn_t,
+                                          material["membrane"],
+                                          material["bending"])
+            unit = shell_mod.local_frames(coords_t, conn_t)
+        else:
+            K = solid_mod.stiffness(coords_t, conn_t, et, material["E"],
+                                    material["nu"])
         t0 = tick("stiffness", t0)
-        if operator == "clustered":
+        if et in SHELL_TYPES:
+            plan = ScatterPlan.build(conn_np, N, 6, device=dev)
+            t0 = tick("plans", t0)
+            shells.append(shell_mod.ShellOperator(K, unit, plan))
+        elif operator == "clustered":
             from ..ops.clustered import ClusterPlan, ClusteredOperator
             plan = ClusterPlan.build(conn_np, N, 3, device=dev)
             t0 = tick("plans", t0)
@@ -137,7 +153,7 @@ def build_static_model(coords, blocks: Dict[str, np.ndarray], material: dict,
         tick("operator", t0)
     if timings is not None:
         timings.update(t)
-    return StaticModel(ops)
+    return StaticModel(ops, shells)
 
 
 class _LiveConstraints:
@@ -164,14 +180,14 @@ def static_structure_solver(coords, force, fixed=None, *, material: dict,
                             dtype=None, operator: str = "assembled",
                             dot_dtype=None, device=None,
                             timings: Optional[dict] = None):
-    """Solve the static problem on solid blocks; returns (u [N, 6],
-    SolveInfo).
+    """Solve the mixed static problem; returns (u [N, 6], SolveInfo).
 
     tpufem's signature (less `jit`): force [N, 6]; fixed nodes pinned in
     all 6 DOFs (or a Constraints over 6 DOFs per node); tol is ABSOLUTE on
     ||r||; dtype defaults to force's; device=None means the CUDA card.
     timings, when given, gets the seconds of the setup stages (see
-    build_static_model), "jacobi" and "solve"."""
+    build_static_model; PackedMixedSystem's for a mixed packed model, and
+    "operator", the whole setup), "jacobi" and "solve"."""
     blocks = dict(blocks or {})
     for name, conn in (("c3d4", c3d4), ("c3d6", c3d6), ("c3d8", c3d8),
                        ("c3d10", c3d10), ("c3d20", c3d20), ("c3d15", c3d15),
@@ -190,9 +206,13 @@ def static_structure_solver(coords, force, fixed=None, *, material: dict,
         constraints = Constraints.fixed(N, fixed if fixed is not None else [],
                                         6, dtype=np_dt)
     if operator == "packed":
-        return _packed_solve(coords, force_t, blocks, material, constraints,
-                             u_init, tol, max_iter, precondition, dot_dtype,
-                             dev, timings)
+        ets = [et.lower() for et in blocks]
+        if not any(et in SOLID_TYPES for et in ets):
+            raise ValueError("operator='packed' needs >= 1 solid element "
+                             f"block, got {ets}")
+        solve = _packed_solve if len(ets) == 1 else _packed_mixed_solve
+        return solve(coords, force_t, blocks, material, constraints, u_init,
+                     tol, max_iter, precondition, dot_dtype, dev, timings)
     model = build_static_model(coords, blocks, material, dtype=dt,
                                operator=operator, device=dev, timings=timings)
     t0 = time.perf_counter()
@@ -242,5 +262,30 @@ def _packed_solve(coords, force_t, blocks, material, constraints, u_init,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     if timings is not None:
+        timings.update(operator=t1 - t0, solve=time.perf_counter() - t1)
+    return u6, info
+
+
+def _packed_mixed_solve(coords, force_t, blocks, material, constraints,
+                        u_init, tol, max_iter, precondition, dot_dtype, dev,
+                        timings):
+    """Several solid blocks, or solids and shells, on the packed layout
+    (ops.packed_mixed.PackedMixedSystem, tpufem's mixed packed branch)."""
+    from ..ops.packed_mixed import PackedMixedSystem
+    N = force_t.shape[0]
+    t0 = time.perf_counter()
+    system = PackedMixedSystem(coords, blocks, material, n_nodes=N,
+                               constraints=constraints,
+                               precondition=bool(precondition),
+                               dtype=force_t.dtype, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    u6, info = system.solve(force_t, x0=u_init, tol=tol, max_iter=max_iter,
+                            dot_dtype=dot_dtype)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    if timings is not None:
+        timings.update(system.timings)
         timings.update(operator=t1 - t0, solve=time.perf_counter() - t1)
     return u6, info

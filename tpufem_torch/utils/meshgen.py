@@ -1,8 +1,9 @@
 """Structured box meshes (host-side numpy), copied from tpufem.utils.meshgen.
 
-The hex box, its Kuhn tet split, its wedge split, the c3d4 -> c3d10
-promotion and the face selector for fixing nodes.  Outputs are bitwise
-equal to tpufem's.
+The hex box, its Kuhn tet split, its wedge split, the second-order
+promotions (c3d4 -> c3d10, c3d8 -> c3d20, c3d6 -> c3d15), the flat s4 and
+s3 shell grids and the face selector for fixing nodes.  Outputs are
+bitwise equal to tpufem's.
 """
 from __future__ import annotations
 
@@ -98,6 +99,12 @@ def _unique_edge_midpoints(coords, edges_flat):
 
 
 _TET_EDGES = np.array([[0, 1], [1, 2], [2, 0], [0, 3], [1, 3], [2, 3]])
+_HEX20_EDGES = np.array([[0, 1], [1, 2], [2, 3], [3, 0],
+                         [4, 5], [5, 6], [6, 7], [7, 4],
+                         [0, 4], [1, 5], [2, 6], [3, 7]])
+_WEDGE15_EDGES = np.array([[0, 1], [1, 2], [2, 0],
+                           [3, 4], [4, 5], [5, 3],
+                           [0, 3], [1, 4], [2, 5]])
 
 
 def _to_second_order(coords, conn, edge_table):
@@ -114,8 +121,43 @@ def tet4_to_tet10(coords, conn):
     return _to_second_order(coords, conn, _TET_EDGES)
 
 
+def hex8_to_hex20(coords, conn):
+    """c3d8 -> c3d20 (VTK serendipity edge order)."""
+    return _to_second_order(coords, conn, _HEX20_EDGES)
+
+
+def wedge6_to_wedge15(coords, conn):
+    """c3d6 -> c3d15 (VTK quadratic-wedge edge order)."""
+    return _to_second_order(coords, conn, _WEDGE15_EDGES)
+
+
 def box_tet10(nx, ny, nz, lx=1.0, ly=1.0, lz=1.0):
     return tet4_to_tet10(*box_tet(nx, ny, nz, lx, ly, lz))
+
+
+def grid_quad(nx: int, ny: int, lx=1.0, ly=1.0, z=0.0):
+    """Flat s4 shell grid in the plane at height z."""
+    xs = np.linspace(0, lx, nx + 1)
+    ys = np.linspace(0, ly, ny + 1)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel(), np.full(X.size, z)], axis=1)
+
+    def nid(i, j):
+        return i * (ny + 1) + j
+
+    I, J = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    I, J = I.ravel(), J.ravel()
+    conn = np.stack([nid(I, J), nid(I + 1, J), nid(I + 1, J + 1),
+                     nid(I, J + 1)], axis=1)
+    return coords, conn.astype(np.int32)
+
+
+def grid_tri(nx: int, ny: int, lx=1.0, ly=1.0, z=0.0):
+    """Flat s3 shell grid (each quad split into two triangles)."""
+    coords, quads = grid_quad(nx, ny, lx, ly, z)
+    t1 = quads[:, [0, 1, 2]]
+    t2 = quads[:, [0, 2, 3]]
+    return coords, np.concatenate([t1, t2], axis=0).astype(np.int32)
 
 
 def boundary_nodes(coords, axis: int = 0, value: float = 0.0, tol=1e-9):
