@@ -3,16 +3,17 @@
 card: the refined packed c3d10 solve, the assembled-stiffness static
 solve, the staged packed pipeline under the block-Jacobi refined solve,
 the relayout, row-read and planar-I/O probes, the converged refined solve
-at tpufem's largest size, and the rest of the solver family with the
-mixed solid + shell driver.  Every PCG and BiCGStab solve runs its
+at tpufem's largest size, the rest of the solver family with the mixed
+solid + shell driver, and Schur substructuring at BASELINE config 4 with
+the remaining operators.  Every PCG and BiCGStab solve runs its
 32-iteration blocks, and GMRES each restart cycle, as CUDA graphs.
 
     python3 chip_smoke.py            # box_tet10(55): 1.00M elements, 4.1M
                                      # DOF; phase 11 at box_tet10(119)
-    python3 chip_smoke.py --n 10 --scale-n 20 --mixed-n 8 --plate-n 16
-                                            # a quick check
+    python3 chip_smoke.py --n 10 --scale-n 20 --mixed-n 8 --plate-n 16 \
+        --hybrid-n 12 --hybrid-parts 32 --bsr-n 6   # a quick check
     python3 chip_smoke.py --phases staged   # some paths (packed, static,
-                                            # staged, probes, scale, family)
+                                # staged, probes, scale, family, hybrid)
     python3 chip_smoke.py --phases turns    # K6, K5b and K3 alone (run
                         # from copies of two trees in turns to compare them)
 
@@ -178,6 +179,40 @@ printed):
   max|u|; on a mode non-zero on a fixed node or an eigen-residual above
   1e-3; and on a plate DOF without stiffness (w, theta_z) that is
   non-zero.  MAX_ITER alone is not a failure.
+  Schur substructuring and the remaining operators (phase 13, hybrid):
+  13a. BASELINE config 4: box_tet(--hybrid-n, default 55: 998,250 c3d4
+       elements) in --hybrid-parts (512) RCB parts, E = 200e9, nu = 0.3,
+       z = 0 fixed, 1e3 in x on the top face, through
+       tpufem_torch.scripts.bench_hybrid (f32, precondition="bdd", slim,
+       interior_inverse, matrix_free_gg: tpufem's round-5 configuration),
+       every count 0 first: the partition statistics (fails unless the
+       interface count, nI_max and nG_max are tpufem's host rule's on the
+       same labels, and 94,883, 289, 542 at the default size), the build by
+       stage, the resident blocks, the peak memory; the interface PCG
+       (one chunk of at most 800 iterations to 1e-7 ||g||) twice, failing
+       unless each is CONVERGED and the two histories are bitwise equal;
+       its float32 solution's f64 true relative residual (through the f64
+       PartialAssemblyOperator, reported) and its displacement against
+       the refined packed c3d4 solve (RefinedSystem, K1-K3, failing
+       unless its f64 true relative residual is <= 1e-6), failing at a
+       max relative difference above 1e-4; and K6 on the config's mesh
+       in float64 (the build's type) bitwise against its plain version;
+       fails unless K1, K2, K3 and K6 launched;
+  13b. tpufem's hybrid record row: box_tet(26), 32 balanced region-grown
+       parts, Jacobi (dense K_GG, the factor's triangular solves), tol
+       1e-4 absolute and then 1e-6 ||g||: the interface count, iterations
+       and displacement against the packed f32 reference beside tpufem's
+       7.9k, 410 and 2e-5 (report only);
+  13c. box_tet10(--n): ClusteredPartialOperator f32 on K7a/K7b (the
+       kernels bitwise against their plain versions on its tables; the
+       apply and diagonal within 1e-5 relative of PartialAssemblyOperator
+       and PackedPartialOperator; ms per apply; fails unless K7a and K7b
+       launched in its applies); static_structure_solver(operator=
+       "partial") f64, phase 8's load and tolerance (fails unless
+       CONVERGED and, when phase 8 ran, its tip within 1e-4 of phase 8's);
+       assemble_bsr and bsr_matvec at box_tet10(--bsr-n, default 20)
+       against ClusteredOperator on the same K6 element matrices (1e-12
+       relative, apply and diagonal).
   With --phases turns (not in the default): the timings of 8d (K6) and
   9d (K5b in turns with K3), by the same helpers, on box_tet10(n) alone.
   For before/after figures, copy this
@@ -187,7 +222,8 @@ printed):
 It then prints {"kernels": [...]} (the static kernels' numbers are
 float64, the main path's type, with the float32 ones beside them; K1,
 K5b, K6, K7a and K7b add ms_min and ms_max; K1-K3 and K6 add
-family_launches and family_replayed, phase 12's), the
+family_launches and family_replayed, phase 12's; K1-K3, K6, K7a and K7b
+add hybrid_launches and hybrid_replayed, phase 13's), the
 card's name and power limit, and, last, {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -1157,6 +1193,7 @@ def static_phase(args, dev, tip_packed):
     r = (b3 - op64(u3.reshape(-1)).reshape(N, 3)) * mask
     true_rel = float(torch.linalg.norm(r) / torch.linalg.norm(b3))
     tip = float(u3[torch.as_tensor(top, device=dev).long(), 2].mean())
+    args.static_solve = (tip, iters)              # phase 13c's yardstick
     tip_d = (abs(tip - tip_packed) / abs(tip_packed)
              if tip_packed is not None else float("nan"))
     setup_s = sum(timings[k] for k in ("stiffness", "plans", "operator",
@@ -1934,6 +1971,11 @@ def scale_phase(args, dev):
 FAMILY_MAT = {"E": 200.0, "nu": 0.3, "membrane": (200.0, 0.3, 0.05),
               "bending": (200.0, 0.3, 0.05)}
 MODAL_OUTER, MODAL_INNER = 12, 800
+# phase 13a's interface tolerance, relative to ||g||: bench_hybrid.py's
+# absolute 1e-4 is 1.33e-9 of config 4's ||g|| (75,218), below what the
+# float32 interface CG reaches (its recurrence turns at 2.1e-9, and a
+# chunk's restart from the true residual there diverges: PERF.md)
+HYBRID_TOL_REL = 1e-7
 
 
 def family_phase(args, dev):
@@ -2357,6 +2399,336 @@ def family_phase(args, dev):
             {k: v[1] for k, v in totals.items()})
 
 
+# tpufem's counts for BASELINE config 4 (box_tet(55), 512 RCB parts: its
+# host rule, hybrid.py:371-392, PERFORMANCE.md's table) and its hybrid
+# record (scripts/bench_hybrid.py 26 32: 32 balanced region-grown parts,
+# Jacobi; PERFORMANCE.md "Hybrid Schur substructuring at config-4 scale")
+CONFIG4 = {"n": 55, "parts": 512, "nI_max": 289, "nG_max": 542,
+           "interface": 94883}
+HYBRID_RECORD = {"interface": 7.9e3, "iterations": 410,
+                 "displacement": 2e-5}
+# phase 8's clustered static solve at box_tet10(55): its recorded count
+STATIC_ITERATIONS = 1562
+
+
+def tpufem_interface(conn, labels, fixed, n_nodes: int, n_parts: int):
+    """tpufem's host rule, part by part (hybrid.py:371-392): the nodes of
+    more than one part and the fixed nodes are the interface.  Returns
+    (interface nodes, nI_max, nG_max)."""
+    cnt = np.zeros(n_nodes, np.int64)
+    parts = []
+    for p in range(n_parts):
+        nodes = np.unique(conn[labels == p])
+        cnt[nodes] += 1
+        parts.append(nodes)
+    iface = cnt > 1
+    iface[fixed] = True
+    return (int(iface.sum()), max(int((~iface[u]).sum()) for u in parts),
+            max(int(iface[u].sum()) for u in parts))
+
+
+def hybrid_phase(args, dev):
+    """Schur substructuring and the remaining operators (phase 13 of the
+    module docstring).  Returns the launches of K1-K3, K6, K7a and K7b
+    summed over its main-path windows, and those of them by graph
+    replays."""
+    import tpufem_torch as tt
+    from tpufem_torch.ops import cluster_kernels as ck
+    from tpufem_torch.ops import stiffness_kernels as sk
+    from tpufem_torch.scripts import bench_hybrid
+    from tpufem_torch.solvers.cg import CONVERGED, NAN_INF, NOT_SPD
+
+    f32, f64 = torch.float32, torch.float64
+    mg = tt.meshgen
+    watched = (tt.FUSED_YC, tt.COMBINE, tt.COMPRESS_GATHER,
+               tt.STIFFNESS_FUSED, tt.CLUSTER_EXPAND, tt.CLUSTER_COMPRESS)
+    totals = {K.name: [0, 0] for K in watched}
+
+    def zero():
+        torch.cuda.synchronize()
+        for K in tt.KERNELS:
+            K.launches = K.replayed = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def read(label, need):
+        torch.cuda.synchronize()
+        out = {K.name: (K.launches, K.replayed) for K in watched}
+        for name, (n, r) in out.items():
+            totals[name][0] += n
+            totals[name][1] += r
+        for name in need:
+            if out[name][0] <= 0:
+                fail(f"hybrid {label}: kernel {name} was not launched")
+        return ", ".join(f"{k} {n}" + (f" ({r} by graph replays)" if n
+                                        else "")
+                         for k, (n, r) in out.items())
+
+    def solve_checks(label, out, gate=True):
+        """Each solve's status, count, time and history (fails on NOT_SPD
+        or NAN_INF when `gate`); True when the histories are bitwise
+        equal."""
+        for k, r in enumerate(out["solves"]):
+            h = r["history"]
+            j = int(np.argmin(h))
+            log(f"hybrid {label} solve {k}: status {r['status']}, "
+                f"interface-CG iterations {r['iterations']}, "
+                f"{r['seconds']:.3f} s, recurrence ||r|| "
+                f"{r['residual_norm']:.3e}, history's last "
+                f"{r['history_last_rel']:.3e} of ||g|| {h[0]:.3e} (least "
+                f"{h[j] / h[0]:.3e} at iteration {j}; tol {out['tol']:.4g} "
+                f"absolute" + (f" = {out['tol_rel']:g} ||g||)"
+                               if out["tol_rel"] else ")"))
+            if gate and r["status"] in (NOT_SPD, NAN_INF):
+                fail(f"hybrid {label}: solve {k} status {r['status']}")
+        h = [r["history"] for r in out["solves"]]
+        same = all(np.array_equal(h[0], x) for x in h[1:])
+        log(f"hybrid {label}: the {len(h)} interface histories bitwise "
+            f"equal: {same} ({h[0].size} entries each)")
+        return same
+
+    # 13a. BASELINE config 4 at full size, every count 0 first
+    n, P = args.hybrid_n, args.hybrid_parts
+    zero()
+    t0 = time.perf_counter()
+    out, system, u, u_ref = bench_hybrid.run(
+        n, P, "rcb", "bdd", slim=True, interior_inverse=True,
+        matrix_free_gg=True, tol_rel=HYBRID_TOL_REL, max_iter=800,
+        ref="refined", ref_tol_rel=1e-6, solves=2, device=dev, log=log)
+    launches = read("13a", ("stiffness_fused", "fused_yc", "combine",
+                            "compress_gather"))
+    t_all = time.perf_counter() - t0
+    coords, conn = mg.box_tet(n, n, n)
+    N = coords.shape[0]
+    fixed = mg.boundary_nodes(coords, 2, 0.0)
+    host = tpufem_interface(conn, out["labels"], fixed, N, P)
+    got = (out["n_interface"], out["nI_max"], out["nG_max"])
+    rb = out["resident_bytes"]
+    log(f"hybrid 13a: box_tet({n}) {out['elements']} c3d4 elements, "
+        f"{out['nodes']} nodes, {P} RCB parts of "
+        f"{out['part_sizes'][0]}-{out['part_sizes'][1]} elements; "
+        f"interface nodes {got[0]}, nI_max {got[1]}, nG_max {got[2]} "
+        f"(tpufem's host rule on the same labels: {host}; PERFORMANCE.md "
+        f"at 512 parts: 289, 542, 92.7k); mesh {out['mesh_seconds']:.2f} s, "
+        f"partition {out['partition_seconds']:.2f} s, build "
+        f"{out['build_seconds']:.2f} s by stage "
+        f"{ {k: round(v, 3) for k, v in out['build_stages'].items()} }; "
+        f"resident Kinv {rb.get('Kinv', 0) / 1e9:.3f} GB, Sinv "
+        f"{rb.get('Sinv', 0) / 1e9:.3f} GB, K_IG {rb['K_IG'] / 1e9:.3f} GB "
+        f"(PERFORMANCE.md: 1.5, 5.4, 2.9), all blocks "
+        f"{sum(rb.values()) / 1e9:.3f} GB; peak device memory through the "
+        f"solves {out['max_memory_allocated'] / 1e9:.2f} GB; schur_matvec "
+        f"{out['schur_matvec_ms']:.3f} ms, chunk {out['every']}")
+    if got != host:
+        fail(f"hybrid 13a: interface, nI_max, nG_max {got} differ from "
+             f"tpufem's host rule {host}")
+    if (n, P) == (CONFIG4["n"], CONFIG4["parts"]) and got != (
+            CONFIG4["interface"], CONFIG4["nI_max"], CONFIG4["nG_max"]):
+        fail(f"hybrid 13a: {got} is not config 4's (94883, 289, 542)")
+    same = solve_checks("13a", out)
+    ref = out["reference"]
+    # the whole system's f64 true residual through the f64 operator
+    op64 = tt.PartialAssemblyOperator.build(coords, conn, "c3d4", E, NU,
+                                            n_nodes=N, dtype=f64, device=dev)
+    mask = torch.ones((N, 3), dtype=f64, device=dev)
+    mask[torch.as_tensor(fixed, device=dev).long()] = 0.0
+    b = torch.zeros((N, 3), dtype=f64, device=dev)
+    b[torch.as_tensor(mg.boundary_nodes(coords, 2, 1.0), device=dev).long(),
+      0] = 1e3
+    b = b * mask
+    true_rel = float(torch.linalg.norm((b - op64(u.double())) * mask)
+                     / torch.linalg.norm(b))
+    d_ref = ref["rel_displacement_diff"]
+    log(f"hybrid 13a: vs the refined packed c3d4 solve ({ref['cycles']} "
+        f"cycles, {ref['iterations']} inner iterations, f64 true rel "
+        f"residual {ref['rel_residual']:.3e}, {ref['seconds']:.2f} s): the "
+        f"float32 hybrid solve's max rel displacement difference "
+        f"{d_ref:.3e} (gate 1e-4; tpufem's 105k record 2e-5), its f64 "
+        f"true rel residual {true_rel:.3e}; launches {launches}; phase 13a "
+        f"{t_all:.1f} s")
+    if not same:
+        fail("hybrid 13a: the two interface histories differ")
+    for k, r in enumerate(out["solves"]):
+        if r["status"] != CONVERGED:
+            fail(f"hybrid 13a: solve {k} status {r['status']}, not "
+                 f"CONVERGED to {HYBRID_TOL_REL:g} ||g||")
+    if not ref["rel_residual"] <= 1e-6:
+        fail(f"hybrid 13a: the reference's f64 residual "
+             f"{ref['rel_residual']:.3e} > 1e-6")
+    if not d_ref <= 1e-4:
+        fail(f"hybrid 13a: the float32 hybrid solve's displacement "
+             f"{d_ref:.3e} from the refined packed solve, above 1e-4")
+    # K6 on config 4's c3d4 mesh in float64, the build's type, bitwise its
+    # plain version
+    ct = torch.as_tensor(coords, device=dev).to(f64)
+    cn = torch.as_tensor(conn, device=dev)
+    k_got = sk.stiffness_fused(ct, cn, "c3d4", E, NU)
+    k_want = sk.stiffness_fused_plain(ct, cn, "c3d4", E, NU)
+    if not torch.equal(k_got, k_want):
+        fail(f"hybrid 13a: stiffness_fused differs from its plain version "
+             f"on {tuple(k_got.shape)}: max |d| "
+             f"{float((k_got - k_want).abs().max()):.3e}")
+    log(f"hybrid 13a parity stiffness_fused: bitwise equal to its plain "
+        f"version on {tuple(k_got.shape)} float64")
+    del system, u, u_ref, op64, k_got, k_want, mask, b
+    torch.cuda.empty_cache()
+
+    # 13b. tpufem's record row: box_tet(26), 32 balanced region-grown
+    # parts, Jacobi (the dense K_GG and the factor's triangular solves)
+    zero()
+    out, system, u, u_ref = bench_hybrid.run(
+        26, 32, "grow", "jacobi", slim=False, interior_inverse=False,
+        matrix_free_gg=False, tol=1e-4, max_iter=800, ref="packed",
+        ref_tol_rel=1e-5, solves=2, device=dev, log=log)
+    launches = read("13b", ("stiffness_fused",))
+    solve_checks("13b", out, gate=False)
+    r = out["solves"][-1]
+    # the same system to a tolerance relative to ||g|| (the f32 Jacobi
+    # interface CG may turn away before tpufem's absolute 1e-4)
+    gnorm = float(r["history"][0])
+    bt = torch.zeros_like(u)
+    b_np = np.zeros(tuple(u.shape), np.float32)
+    cb, _ = mg.box_tet(26, 26, 26)
+    b_np[mg.boundary_nodes(cb, 2, 1.0), 0] = 1e3
+    b_np[mg.boundary_nodes(cb, 2, 0.0)] = 0.0
+    bt.copy_(torch.as_tensor(b_np))
+    t0 = time.perf_counter()
+    u_rel, info = system.solve_chunked(bt, tol=1e-6 * gnorm, max_iter=800,
+                                       every=out["every"])
+    torch.cuda.synchronize()
+    t_rel = time.perf_counter() - t0
+    d_rel = float((u_rel.double() - u_ref.double()).abs().max()
+                  / u_ref.double().abs().max())
+    log(f"hybrid 13b (tpufem's record row): {out['elements']} elements, "
+        f"interface nodes {out['n_interface']} (tpufem "
+        f"{HYBRID_RECORD['interface']:g}), interface-CG iterations "
+        f"{r['iterations']} status {r['status']} at tol 1e-4 (tpufem "
+        f"{HYBRID_RECORD['iterations']}), warm solve {r['seconds']:.3f} s, "
+        f"displacement vs the packed f32 reference "
+        f"{out['reference']['rel_displacement_diff']:.3e} (tpufem "
+        f"{HYBRID_RECORD['displacement']:g}); to 1e-6 ||g||: status "
+        f"{int(info.status)}, {int(info.iterations)} iterations, "
+        f"{t_rel:.3f} s, displacement {d_rel:.3e}; build "
+        f"{out['build_seconds']:.2f} s; launches {launches}")
+    del system, u, u_ref, u_rel
+    torch.cuda.empty_cache()
+
+    # 13c. the remaining operators at box_tet10(--n)
+    coords, conn = mg.box_tet10(args.n, args.n, args.n)
+    N, M = coords.shape[0], conn.shape[0]
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    cpo = tt.ClusteredPartialOperator.build(coords, conn, "c3d10", E, NU,
+                                            n_nodes=N, dtype=f32, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    p = cpo.plan
+    B, L = p.n_clusters, p.l_max
+    u32 = torch.as_tensor(rng.standard_normal((N, 3)), dtype=f32,
+                          device=dev)
+    lc = p.lconn.reshape(B, -1)
+    Uc = u32[p.l2g.long()]
+    Fe = torch.as_tensor(rng.standard_normal((B, lc.shape[1], 3)),
+                         dtype=f32, device=dev)
+    for name, got, want in (
+            ("cluster_expand", ck.cluster_expand(lc, Uc),
+             ck.cluster_expand_plain(lc, Uc)),
+            ("cluster_compress", ck.cluster_compress(lc, Fe, L),
+             ck.cluster_compress_plain(lc, Fe, L))):
+        if not torch.equal(got, want):
+            fail(f"hybrid 13c: {name} differs from its plain version on "
+                 f"the ClusteredPartialOperator's tables")
+        log(f"hybrid 13c parity {name}: bitwise equal to its plain version "
+            f"on {tuple(got.shape)} float32 ({B} clusters)")
+    zero()
+    for _ in range(args.reps):
+        F_c = cpo(u32)
+    launches = read("13c", ("cluster_expand", "cluster_compress"))
+    ms_c = time_ms(lambda: cpo(u32), args.reps)
+    pa = tt.PartialAssemblyOperator.build(coords, conn, "c3d10", E, NU,
+                                          n_nodes=N, dtype=f32, device=dev)
+    po = tt.PackedPartialOperator.build(coords, conn, "c3d10", E, NU,
+                                        n_nodes=N, dtype=f32, device=dev)
+    F_p = pa(u32)
+    F_k = po.plan.unpack(po(po.plan.pack(u32)))
+    scale = float(F_p.abs().max())
+    d_p = float((F_c - F_p).abs().max()) / scale
+    d_k = float((F_c - F_k).abs().max()) / scale
+    d_d = float((cpo.diagonal() - pa.diagonal()).abs().max()
+                / pa.diagonal().abs().max())
+    ms_p = time_ms(lambda: pa(u32), args.reps)
+    log(f"hybrid 13c: ClusteredPartialOperator at box_tet10({args.n}) "
+        f"({M} elements, {B} clusters of {p.elems_per_cluster}, affine "
+        f"{cpo.Jinv.shape[1] == 1}; built in {t_build:.2f} s): "
+        f"{ms_c:.4f} ms per f32 apply (PartialAssemblyOperator "
+        f"{ms_p:.4f} ms), launches over {args.reps} applies {launches}; "
+        f"max |F| difference relative to max |F|: {d_p:.3e} against "
+        f"PartialAssemblyOperator, {d_k:.3e} against PackedPartialOperator, "
+        f"diagonal {d_d:.3e} (tolerance 1e-5 each)")
+    for what, d in (("PartialAssemblyOperator", d_p),
+                    ("PackedPartialOperator", d_k), ("the diagonal", d_d)):
+        if not d <= 1e-5:
+            fail(f"hybrid 13c: ClusteredPartialOperator differs from {what} "
+                 f"by {d:.3e} relative")
+    del cpo, pa, po, F_c, F_p, F_k, Fe, Uc
+    torch.cuda.empty_cache()
+    # static_structure_solver(operator="partial") in f64, phase 8's load
+    fixed = mg.boundary_nodes(coords, 2, 0.0)
+    top = mg.boundary_nodes(coords, 2, 1.0)
+    force = np.zeros((N, 6))
+    force[top, 2] = -1e3
+    bnorm = float(np.linalg.norm(force))
+    timings = {}
+    u6, info = tt.static_structure_solver(
+        coords, force, fixed, material={"E": E, "nu": NU}, c3d10=conn,
+        operator="partial", precondition=True, dtype=f64,
+        tol=1e-6 * bnorm, max_iter=10000, device=dev, timings=timings)
+    torch.cuda.synchronize()
+    tip = float(u6[torch.as_tensor(top, device=dev).long(), 2].mean())
+    ref_tip, ref_it = getattr(args, "static_solve", (None, None))
+    tip_d = abs(tip - ref_tip) / abs(ref_tip) if ref_tip else float("nan")
+    iters = int(info.iterations)
+    log(f"hybrid 13c: static_structure_solver(operator='partial') f64: "
+        f"status {int(info.status)}, iterations {iters} (phase 8's clustered "
+        f"solve {ref_it}; its record {STATIC_ITERATIONS}), solve "
+        f"{timings['solve']:.2f} s "
+        f"({timings['solve'] / max(iters, 1) * 1e3:.3f} ms per iteration, "
+        f"derived), setup "
+        f"{ {k: round(v, 3) for k, v in timings.items()} }; tip uz mean "
+        f"{tip:.6e}, phase 8's {ref_tip} (rel diff {tip_d:.2e}, gate 1e-4"
+        f"{'' if ref_tip else '; phase 8 did not run'})")
+    if int(info.status) != 1:
+        fail(f"hybrid 13c: partial static solve status {int(info.status)}")
+    if ref_tip and not tip_d <= 1e-4:
+        fail(f"hybrid 13c: partial static tip differs from phase 8's by "
+             f"{tip_d:.3e}")
+    del u6
+    # BSR assembly against the clustered operator on the same K (f64, a
+    # smaller mesh: box_tet10(--bsr-n))
+    cb, eb = mg.box_tet10(args.bsr_n, args.bsr_n, args.bsr_n)
+    Nb = cb.shape[0]
+    Kb = tt.solid.stiffness(torch.as_tensor(cb, device=dev),
+                            torch.as_tensor(eb, device=dev), "c3d10", E, NU)
+    st = tt.build_bsr_structure(eb, Nb, device=dev)
+    A = tt.assemble_bsr(Kb, eb.shape[1], st)
+    cop = tt.ClusteredOperator.build(Kb, eb, Nb, 3, device=dev)
+    ub = torch.as_tensor(rng.standard_normal((Nb, 3)), device=dev)
+    yb, yc = tt.bsr_matvec(A, ub), cop(ub)
+    d_mv = float((yb - yc).abs().max() / yc.abs().max())
+    d_dg = float((A.diagonal() - cop.diagonal()).abs().max()
+                 / cop.diagonal().abs().max())
+    ms_b = time_ms(lambda: tt.bsr_matvec(A, ub), args.reps)
+    log(f"hybrid 13c: BSR at box_tet10({args.bsr_n}) ({eb.shape[0]} "
+        f"elements, {st.nnzb} blocks): bsr_matvec against "
+        f"ClusteredOperator {d_mv:.3e}, diagonal {d_dg:.3e} relative "
+        f"(tolerance 1e-12 each); {ms_b:.4f} ms per f64 bsr_matvec")
+    for what, d in (("bsr_matvec", d_mv), ("the BSR diagonal", d_dg)):
+        if not d <= 1e-12:
+            fail(f"hybrid 13c: {what} differs from the clustered operator "
+                 f"by {d:.3e}")
+    return ({k: v[0] for k, v in totals.items()},
+            {k: v[1] for k, v in totals.items()})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=55,
@@ -2364,19 +2736,26 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--phases",
-                    default="packed,static,staged,probes,scale,family",
+                    default="packed,static,staged,probes,scale,family,"
+                    "hybrid",
                     help="comma-separated subset of packed, static, staged, "
-                    "probes, scale, family, turns")
+                    "probes, scale, family, hybrid, turns")
     ap.add_argument("--scale-n", type=int, default=119,
                     help="phase 11's mesh: box_tet10(n, n, n)")
     ap.add_argument("--mixed-n", type=int, default=64,
                     help="phase 12's BASELINE config 3 at box n, n, n")
     ap.add_argument("--plate-n", type=int, default=128,
                     help="phase 12's s4 and s3 plates: grid n x n")
+    ap.add_argument("--hybrid-n", type=int, default=CONFIG4["n"],
+                    help="phase 13a's mesh: box_tet(n, n, n) c3d4")
+    ap.add_argument("--hybrid-parts", type=int, default=CONFIG4["parts"],
+                    help="phase 13a's RCB part count")
+    ap.add_argument("--bsr-n", type=int, default=20,
+                    help="phase 13c's BSR check: box_tet10(n, n, n)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not phases <= {"packed", "static", "staged", "probes", "scale",
-                      "family", "turns"}:
+                      "family", "hybrid", "turns"}:
         ap.error(f"unknown phases {phases}")
 
     if not torch.cuda.is_available():
@@ -2463,6 +2842,15 @@ def main() -> None:
                 r["family_launches"] = fam[r["name"]]
                 r["family_replayed"] = fam_replayed[r["name"]]
         log(f"phase family: {time.perf_counter() - t0:.1f} s")
+    if "hybrid" in phases:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        hyb, hyb_replayed = hybrid_phase(args, dev)
+        for r in rows:
+            if r["name"] in hyb:
+                r["hybrid_launches"] = hyb[r["name"]]
+                r["hybrid_replayed"] = hyb_replayed[r["name"]]
+        log(f"phase hybrid: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

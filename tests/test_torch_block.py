@@ -34,6 +34,17 @@ INNER_TOL = 1e-5     # absolute PCG tolerances on a unit-norm right-hand side
 PCG_TOL = 1e-9
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread while this module runs: its tensors are small,
+    and under the suite's parallel workers torch's thread pool costs more
+    than it gives."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(a, b):
     return float(np.abs(np.asarray(a) - np.asarray(b)).max()
                  / np.abs(np.asarray(b)).max())

@@ -37,6 +37,17 @@ FIELDS = ("free_mask", "spc_dofs", "spc_values", "rbe2_slave_dofs",
           "rbe3_master_dofs", "rbe3_weight_sums", "mask2d", "spc_const2d")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread while this module runs: its tensors are small,
+    and under the suite's parallel workers torch's thread pool costs more
+    than it gives."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _lists(base, top, nd=3):
     """tpufem's constrained workload of test_packed_constraints_parity:
     the base pinned but for two nodes, one with a value, an RBE2 and an

@@ -23,6 +23,17 @@ E, NU = 200e9, 0.3
 DTYPES = [torch.float32, torch.float64]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread while this module runs: its tensors are small,
+    and under the suite's parallel workers torch's thread pool costs more
+    than it gives."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def cuda_device():
     if not torch.cuda.is_available():
@@ -993,6 +1004,111 @@ def test_packed_constraints_comp3_on_card(cuda_device):
             u6[:, comp:comp + 3].to(d)))) for d in plans}
         assert torch.allclose(got[cuda_device].cpu(), got["cpu"],
                               rtol=1e-14, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+def test_clustered_partial_on_card_bitwise_vs_plain(cuda_device, dt):
+    """ClusteredPartialOperator on the card (K7a, K7b) against the same
+    pipeline with the kernels' plain versions on the same tensors:
+    bitwise, apply and diagonal."""
+    from tpufem_torch.ops.partial import pa_apply_components
+    coords, conn = tpufem_torch.meshgen.box_tet10(4, 4, 4)
+    coords = coords + 0.01 * np.random.default_rng(7).standard_normal(
+        coords.shape)
+    N = coords.shape[0]
+    op = tpufem_torch.ClusteredPartialOperator.build(
+        coords, conn, "c3d10", E, NU, n_nodes=N, dtype=dt,
+        device=cuda_device)
+    p = op.plan
+    B, L, E_c = p.n_clusters, p.l_max, p.elems_per_cluster
+    lc = p.lconn.reshape(B, -1)
+    u = torch.as_tensor(np.random.default_rng(8).standard_normal((N, 3)),
+                        dtype=dt, device=cuda_device)
+    ex, cp = tck.CLUSTER_EXPAND.launches, tck.CLUSTER_COMPRESS.launches
+    got = op(u)
+    assert tck.CLUSTER_EXPAND.launches == ex + 1
+    assert tck.CLUSTER_COMPRESS.launches == cp + 1
+    ue = tck.cluster_expand_plain(lc, u[p.l2g.long()])
+    cols = pa_apply_components(
+        tuple(ue[..., c].reshape(B * E_c, -1) for c in range(3)), op.Jinv,
+        op.W, op.dN, *op.lam_mu)
+    Fe = torch.stack([f.reshape(B, -1) for f in cols], dim=-1)
+    want = p.combine(tck.cluster_compress_plain(lc, Fe, L).reshape(B * L, 3))
+    assert torch.equal(got, want)
+    d = op.diagonal()
+    op.use_pallas = True
+    assert torch.equal(d, op.diagonal())
+
+
+def _hybrid_problem(device, dtype, **kw):
+    mg = tpufem_torch.meshgen
+    coords, conn = mg.box_tet(4, 4, 4)
+    N = coords.shape[0]
+    fixed = mg.boundary_nodes(coords, 2, 0.0)
+    b = np.zeros((N, 3))
+    b[mg.boundary_nodes(coords, 2, 1.0), 0] = 1e3
+    b[fixed] = 0.0
+    system = tpufem_torch.build_hybrid(coords, conn, "c3d4", E, NU, 6,
+                                       fixed_nodes=fixed, dtype=dtype,
+                                       device=device, **kw)
+    return system, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, dict(precondition="bdd", slim=True,
+                                         interior_inverse=True,
+                                         matrix_free_gg=True)],
+                         ids=["jacobi", "bdd_slim"])
+def test_build_hybrid_on_card_vs_cpu(cuda_device, kw):
+    """build_hybrid on the card (element stiffness by K6) against the same
+    build on the CPU, f64: the tables equal, the blocks within 1e-12
+    relative, the solves' displacements within 1e-10."""
+    K6 = tsk.STIFFNESS_FUSED.launches
+    sc, b = _hybrid_problem(cuda_device, torch.float64, **kw)
+    assert tsk.STIFFNESS_FUSED.launches > K6
+    sh, _ = _hybrid_problem("cpu", torch.float64, **kw)
+    for name in ("gmap", "imap", "g_nodes"):
+        assert torch.equal(getattr(sc, name).cpu(), getattr(sh, name))
+    for name in ("scat_perm", "scat_seg"):
+        assert np.array_equal(getattr(sc, name), getattr(sh, name))
+    for name in ("chol", "K_IG", "K_GG", "Kinv", "Sinv", "Echol", "Minv_G"):
+        a, c = getattr(sc, name), getattr(sh, name)
+        assert (a is None) == (c is None), name
+        if a is not None:
+            assert float((a.cpu() - c).abs().max()
+                         / c.abs().max().clamp(min=1e-300)) <= 1e-12, name
+    uc, ic = sc.solve(b, tol=1e-6, max_iter=500)
+    uh, ih = sh.solve(b, tol=1e-6, max_iter=500)
+    assert int(ic.status) == int(ih.status) == 1
+    assert float((uc.cpu() - uh).abs().max() / uh.abs().max()) <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+def test_hybrid_interface_pcg_graph_bitwise_vs_eager(cuda_device, dt):
+    """The interface PCG's block (the CGBlock that solve and solve_chunked
+    share) replayed as CUDA graphs against the same block run eagerly: the
+    histories and the interface solutions bitwise equal, and solve's
+    history that of the graphed block."""
+    from tpufem_torch.solvers.cg import CGBlock
+    system, b = _hybrid_problem(cuda_device, dt, precondition="bdd",
+                                slim=True, interior_inverse=True,
+                                matrix_free_gg=True)
+    _, g = system._condense(system._force(b))
+    tol = 1e-6 * float(torch.linalg.norm(g))
+    out = []
+    for graphed in (True, False):
+        blk = CGBlock(system.schur_matvec, g, M_inv=system.apply_M, tol=tol,
+                      eps=1e-30)
+        blk.graphed = graphed and blk.graphed
+        u, info = blk.solve(g, max_iter=100)
+        out.append((u, info.history, info.iterations))
+    (u1, h1, i1), (u2, h2, i2) = out
+    assert int(i1) == int(i2) > 0
+    assert torch.equal(u1, u2) and torch.equal(h1, h2)
+    _, info = system.solve(b, tol=tol, max_iter=100)
+    assert torch.equal(info.history, h1)
 
 
 @pytest.mark.cuda

@@ -27,6 +27,17 @@ from tpufem_torch.utils import meshgen
 from test_torch_solve import E, NU, port_system, problem  # noqa: F401
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread while this module runs: its tensors are small,
+    and under the suite's parallel workers torch's thread pool costs more
+    than it gives."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _loop_cg(A, b, *, constraints=None, M_inv=None, x0=None, tol=1e-10,
              max_iter=1000, eps=1e-30, record_history=True, dot_dtype=None,
              resume_state=None, return_state=False):

@@ -7,6 +7,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from tpufem.core import materials as j_materials
 from tpufem.solvers import constraints as j_constraints
@@ -24,6 +25,17 @@ _RULES = [(et, r) for et in ("c3d4", "c3d10", "c3d8", "c3d20", "c3d6",
                              "c3d15", "s3", "s4", "c3d8i")
           for r in ("default", "reduced", "full", "mass")] + [("c3d10",
                                                                "ref11")]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread while this module runs: its tensors are small,
+    and under the suite's parallel workers torch's thread pool costs more
+    than it gives."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("etype,rule", _RULES)
@@ -147,6 +159,12 @@ _ALL_MODULES = [
     "tpufem_torch.ops.packed_mixed", "tpufem_torch.solvers.bicgstab",
     "tpufem_torch.solvers.gmres", "tpufem_torch.solvers.newton",
     "tpufem_torch.solvers.modal", "tpufem_torch.solvers.legacy",
+    "tpufem_torch.core.dtypes", "tpufem_torch.core.xmath",
+    "tpufem_torch.topology.faces", "tpufem_torch.topology.edges",
+    "tpufem_torch.topology.diagnostics", "tpufem_torch.parallel",
+    "tpufem_torch.parallel.partition", "tpufem_torch.ops.assembly",
+    "tpufem_torch.solvers.hybrid", "tpufem_torch.scripts.bench_hybrid",
+    "tpufem_torch.examples.hybrid_subdomain",
 ]
 
 

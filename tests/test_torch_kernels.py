@@ -27,6 +27,17 @@ E, NU = 200e9, 0.3
 DTYPES = [(np.float32, torch.float32), (np.float64, torch.float64)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread while this module runs: its tensors are small,
+    and under the suite's parallel workers torch's thread pool costs more
+    than it gives."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _plans(n):
     coords, conn = meshgen.box_tet10(n, n, n)
     N = coords.shape[0]

@@ -23,6 +23,17 @@ from tpufem_torch.solvers.refine import F64Operator
 E, NU = 200e9, 0.3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread while this module runs: its tensors are small,
+    and under the suite's parallel workers torch's thread pool costs more
+    than it gives."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _curve(coords):
     c = coords.copy()
     c[:, 0] += 0.05 * np.sin(2.0 * c[:, 1]) * c[:, 2]

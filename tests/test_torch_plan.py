@@ -15,6 +15,17 @@ TABLES = ("win_nodes", "wslot", "jslot", "lconn", "winc", "slotidx",
           "new_from_old", "old_from_new", "esrc")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread while this module runs: its tensors are small,
+    and under the suite's parallel workers torch's thread pool costs more
+    than it gives."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _curve(coords):
     c = coords.copy()
     c[:, 0] += 0.05 * np.sin(2.0 * c[:, 1]) * c[:, 2]

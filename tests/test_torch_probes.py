@@ -34,6 +34,17 @@ from tpufem_torch.ops import probe_planar_io, probe_reshape, probe_rowdma
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread while this module runs: its tensors are small,
+    and under the suite's parallel workers torch's thread pool costs more
+    than it gives."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _script(name):
     path = os.path.join(ROOT, "scripts", f"{name}.py")
     spec = importlib.util.spec_from_file_location(f"_ref_{name}", path)

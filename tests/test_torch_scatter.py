@@ -28,6 +28,17 @@ MESHES = {"c3d10": ("box_tet10", (3, 2, 2)), "c3d4": ("box_tet", (3, 3, 2)),
           "c3d8": ("box_hex", (3, 2, 4))}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread while this module runs: its tensors are small,
+    and under the suite's parallel workers torch's thread pool costs more
+    than it gives."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(got, want):
     want = np.asarray(want)
     return float(np.abs(got.numpy() - want).max() / np.abs(want).max())

@@ -41,6 +41,17 @@ MESHES = {"c3d4": ("box_tet", (2, 2, 2)), "c3d10": ("box_tet10", (2, 2, 2)),
 TYPES = list(MESHES)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread while this module runs: its tensors are small,
+    and under the suite's parallel workers torch's thread pool costs more
+    than it gives."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _curved(etype):
     gen, dims = MESHES[etype]
     coords, conn = getattr(meshgen, gen)(*dims)

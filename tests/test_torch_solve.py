@@ -27,6 +27,17 @@ TOL = 1e-5          # absolute PCG tolerance on a unit-norm right-hand side
 EVERY = 50
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread while this module runs: its tensors are small,
+    and under the suite's parallel workers torch's thread pool costs more
+    than it gives."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def problem():
     coords, conn = meshgen.box_tet10(3, 3, 3)

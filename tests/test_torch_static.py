@@ -2,9 +2,9 @@
 
 static_structure_solver on box_tet10(2, 2, 3) in f64 (z = 0 fixed, a load
 on the top face, [N, 6] state, Jacobi PCG to an absolute tolerance of
-1e-8 ||b||): with operator="assembled" and "clustered", the same status,
-iteration counts within 3% of tpufem's, and u within 1e-8 relative
-(max-norm).  The flagship step of __graft_entry__.entry (f32 stiffness,
+1e-8 ||b||): with operator="assembled", "clustered" and "partial", the
+same status, iteration counts within 3% of tpufem's, and u within 1e-8
+relative (max-norm).  The flagship step of __graft_entry__.entry (f32 stiffness,
 MatrixFreeOperator, Jacobi, 50 CG iterations) gives u within 1e-4
 relative of tpufem's: f32 sums in another order, over 50 iterations.
 """
@@ -26,6 +26,17 @@ E, NU = 200e9, 0.3
 MATERIAL = {"E": E, "nu": NU}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread while this module runs: its tensors are small,
+    and under the suite's parallel workers torch's thread pool costs more
+    than it gives."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def problem():
     coords, conn = meshgen.box_tet10(2, 2, 3)
@@ -39,7 +50,7 @@ def problem():
     return coords, conn, fixed, force, tol
 
 
-@pytest.mark.parametrize("operator", ["assembled", "clustered"])
+@pytest.mark.parametrize("operator", ["assembled", "clustered", "partial"])
 def test_static_solver_matches_tpufem(problem, operator):
     coords, conn, fixed, force, tol = problem
     kw = dict(material=MATERIAL, c3d10=conn, operator=operator,
@@ -79,13 +90,13 @@ def test_static_model_parts(problem):
 
 
 def test_unported_paths_raise(problem):
-    """operator="partial" is not ported yet and "dense" is no operator
-    (shell blocks and mixed packed models are ported: tests of
-    tests/test_torch_mixed.py)."""
+    """"dense" is no operator and "c3d9" no element type (every operator
+    of tpufem is ported: "partial" in test_static_solver_matches_tpufem,
+    shell blocks and mixed packed models in tests/test_torch_mixed.py)."""
     coords, conn, fixed, force, _ = problem
-    for kw, err in ((dict(c3d10=conn, operator="partial"),
-                     NotImplementedError),
-                    (dict(c3d10=conn, operator="dense"), ValueError)):
+    for kw, err in ((dict(c3d10=conn, operator="dense"), ValueError),
+                    (dict(blocks={"c3d9": conn}, operator="partial"),
+                     ValueError)):
         with pytest.raises(err):
             tpufem_torch.static_structure_solver(
                 coords, force, fixed, material=MATERIAL, device="cpu", **kw)

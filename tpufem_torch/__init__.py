@@ -23,6 +23,14 @@ kernels:
   ops.packed_mixed.PackedMixedSystem for operator="packed" with several
   blocks (the largest solid block on kernels fused_yc, combine and
   compress_gather, the others on stiffness_fused);
+* Schur substructuring (solvers.hybrid: build_hybrid, HybridSystem,
+  hybrid_solve) with Jacobi, Neumann-Neumann and BDD interface
+  preconditioners, on the partitioners of parallel.partition, element
+  stiffness by kernel stiffness_fused and the interface PCG as CUDA
+  graphs; the geometry-factor operators PartialAssemblyOperator and
+  ClusteredPartialOperator (kernels cluster_expand, cluster_compress), BSR
+  assembly (ops.assembly) and static_structure_solver(operator="partial");
+  the topology tools (topo_faces, topo_edges, topo_diagnostics);
 * the rest of the solver family: bicgstab, gmres, newton_raphson,
   modal_solver / naive_modal_solver, masked_cg and the compensated dot
   (cg's dot_dtype="compensated"), also on the packed operator
@@ -62,11 +70,15 @@ from .elements.shell import (ShellOperator, local_frames,  # noqa: E402
                              shell_nodal_forces, shell_postprocess_values,
                              shell_stiffness, shell_stress)
 from .elements.tables import ElementTable, element_table  # noqa: E402
-from .ops import cuda  # noqa: E402
+from .ops import assembly, cuda  # noqa: E402
+from .ops.assembly import (BSRMatrix, BSRStructure,  # noqa: E402
+                           assemble_bsr, assemble_dense, bsr_matvec,
+                           build_bsr_structure, to_scipy)
 from .ops.cluster_kernels import (CLUSTER_COMPRESS, CLUSTER_EXPAND,  # noqa: E402
                                   cluster_compress, cluster_expand,
                                   cluster_spmv)
-from .ops.clustered import ClusteredOperator, ClusterPlan  # noqa: E402
+from .ops.clustered import (ClusteredOperator,  # noqa: E402
+                            ClusteredPartialOperator, ClusterPlan)
 from .ops.fused_kernels import FUSED_YC, fused_yc  # noqa: E402
 from .ops.operator import (MatrixFreeOperator, block_operator,  # noqa: E402
                            diagonal_preconditioner, nodal_forces)
@@ -84,6 +96,7 @@ from .ops.packed_kernels import (COMBINE, COMPRESS_GATHER,  # noqa: E402
                                  COMPRESS_PLANAR, EXPAND, EXPAND_PLANAR,
                                  combine, compress_gather, compress_planar,
                                  expand, expand_planar)
+from .ops.partial import PartialAssemblyOperator  # noqa: E402
 from .ops.scatter import CombinePlan, ScatterPlan  # noqa: E402
 from .ops.stiffness_kernels import STIFFNESS_FUSED, stiffness_fused  # noqa: E402
 from .solvers import legacy, modal  # noqa: E402
@@ -91,13 +104,19 @@ from .solvers.bicgstab import bicgstab  # noqa: E402
 from .solvers.cg import SolveInfo, cg, comp_vdot, masked_cg  # noqa: E402
 from .solvers.constraints import Constraints  # noqa: E402
 from .solvers.gmres import gmres  # noqa: E402
+from .solvers.hybrid import (HybridSystem, build_hybrid,  # noqa: E402
+                             hybrid_solve)
 from .solvers.modal import (lumped_mass_diagonal, modal_solver,  # noqa: E402
                             naive_modal_solver)
 from .solvers.newton import newton_raphson  # noqa: E402
 from .solvers.refine import F64Operator, RefinedSystem, RefineInfo  # noqa: E402
 from .solvers.static import (StaticModel, build_static_model,  # noqa: E402
                              static_structure_solver)
+from .parallel import partition  # noqa: E402
 from .topology import convert as topo_convert  # noqa: E402
+from .topology import diagnostics as topo_diagnostics  # noqa: E402
+from .topology import edges as topo_edges  # noqa: E402
+from .topology import faces as topo_faces  # noqa: E402
 from .utils import meshgen  # noqa: E402
 
 # the CUDA kernels of the refined packed solve, in the order of the apply
@@ -114,27 +133,32 @@ PROBE_KERNELS = (RELAYOUT_FWD, RELAYOUT_INV, ROW_ACCUMULATE, PLANAR_WRITE,
 KERNELS = PACKED_KERNELS + STATIC_KERNELS + STAGED_KERNELS + PROBE_KERNELS
 
 __all__ = [
-    "BlockJacobi", "CLUSTER_COMPRESS", "CLUSTER_EXPAND", "COMBINE",
-    "COMPRESS_GATHER", "COMPRESS_PLANAR", "ClusterPlan", "ClusteredOperator",
-    "CombinePlan", "Constraints", "EXPAND", "EXPAND_PLANAR", "ElementTable",
-    "F64Operator", "FUSED_YC", "KERNELS", "MatrixFreeOperator",
-    "MixedConstraints", "PACKED_KERNELS", "PLANAR_READ", "PLANAR_WRITE",
-    "PROBE_KERNELS", "PackedConstraints", "PackedMixedOperator",
-    "PackedMixedSystem", "PackedPartialOperator", "PackedPlan",
-    "PackedSystem", "RELAYOUT_FWD", "RELAYOUT_INV", "ROW_ACCUMULATE",
-    "RefineInfo", "RefinedSystem", "STAGED_KERNELS", "STATIC_KERNELS",
-    "STIFFNESS_FUSED", "ScatterPlan", "ShellOperator", "SolveInfo",
-    "StaticModel", "bicgstab", "block_apply", "block_operator",
-    "build_static_model", "cg", "cluster_compress", "cluster_expand",
-    "cluster_spmv", "combine", "comp_vdot", "compress_gather",
-    "compress_planar", "cuda", "diagonal_preconditioner", "dispatch",
-    "elasticity_matrix", "element_table", "expand", "expand_planar",
-    "fused_yc", "gmres", "invert_block_planes", "kirchhoff_D_matrix",
+    "BSRMatrix", "BSRStructure", "BlockJacobi", "CLUSTER_COMPRESS",
+    "CLUSTER_EXPAND", "COMBINE", "COMPRESS_GATHER", "COMPRESS_PLANAR",
+    "ClusterPlan", "ClusteredOperator", "ClusteredPartialOperator",
+    "CombinePlan", "Constraints", "EXPAND", "EXPAND_PLANAR",
+    "ElementTable", "F64Operator", "FUSED_YC", "HybridSystem", "KERNELS",
+    "MatrixFreeOperator", "MixedConstraints", "PACKED_KERNELS",
+    "PLANAR_READ", "PLANAR_WRITE", "PROBE_KERNELS", "PackedConstraints",
+    "PackedMixedOperator", "PackedMixedSystem", "PackedPartialOperator",
+    "PackedPlan", "PackedSystem", "PartialAssemblyOperator",
+    "RELAYOUT_FWD", "RELAYOUT_INV", "ROW_ACCUMULATE", "RefineInfo",
+    "RefinedSystem", "STAGED_KERNELS", "STATIC_KERNELS", "STIFFNESS_FUSED",
+    "ScatterPlan", "ShellOperator", "SolveInfo", "StaticModel",
+    "assemble_bsr", "assemble_dense", "assembly", "bicgstab",
+    "block_apply", "block_operator", "bsr_matvec", "build_bsr_structure",
+    "build_hybrid", "build_static_model", "cg", "cluster_compress",
+    "cluster_expand", "cluster_spmv", "combine", "comp_vdot",
+    "compress_gather", "compress_planar", "cuda",
+    "diagonal_preconditioner", "dispatch", "elasticity_matrix",
+    "element_table", "expand", "expand_planar", "fused_yc", "gmres",
+    "hybrid_solve", "invert_block_planes", "kirchhoff_D_matrix",
     "lame_parameters", "legacy", "local_frames", "lumped_mass_diagonal",
     "masked_cg", "meshgen", "modal", "modal_solver", "naive_modal_solver",
-    "newton_raphson", "nodal_forces", "planar_read", "planar_write",
-    "probe_fused", "relayout_fwd", "relayout_inv", "resolve_device",
-    "row_accumulate", "shell", "shell_nodal_forces",
+    "newton_raphson", "nodal_forces", "partition", "planar_read",
+    "planar_write", "probe_fused", "relayout_fwd", "relayout_inv",
+    "resolve_device", "row_accumulate", "shell", "shell_nodal_forces",
     "shell_postprocess_values", "shell_stiffness", "shell_stress", "solid",
-    "static_structure_solver", "stiffness_fused", "topo_convert",
+    "static_structure_solver", "stiffness_fused", "to_scipy",
+    "topo_convert", "topo_diagnostics", "topo_edges", "topo_faces",
 ]

@@ -1,4 +1,5 @@
-"""ctypes bindings for the native plan-build engine (meshops.cpp).
+"""ctypes bindings for the native host engine (meshops.cpp): the packed
+plan build, face and edge hashing, and the partitioner's BFS passes.
 
 Compiled at first use (``g++ -O3 -shared``) into ``native/_build/``.  Every
 entry point returns None when the library is unavailable, and its caller
@@ -73,6 +74,19 @@ def _load() -> Optional[ctypes.CDLL]:
     i32p = ctypes.POINTER(ctypes.c_int32)
     i64p = ctypes.POINTER(ctypes.c_int64)
     u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.extract_faces.restype = ctypes.c_int32
+    lib.extract_faces.argtypes = [i32p, ctypes.c_int64, ctypes.c_int32,
+                                  i32p, ctypes.c_int32, ctypes.c_int32,
+                                  i32p, i64p, i32p, i32p, i32p, i64p]
+    lib.region_grow.restype = ctypes.c_int32
+    lib.region_grow.argtypes = [i64p, i32p, ctypes.c_int64, i32p,
+                                ctypes.c_int32, i64p]
+    lib.bfs_distances.restype = ctypes.c_int32
+    lib.bfs_distances.argtypes = [i64p, i32p, ctypes.c_int64, i32p,
+                                  ctypes.c_int64, i64p]
+    lib.unique_edges.restype = ctypes.c_int64
+    lib.unique_edges.argtypes = [i32p, ctypes.c_int64, ctypes.c_int32,
+                                 i32p, ctypes.c_int32, i32p]
     lib.radix_argsort_i32.restype = ctypes.c_int32
     lib.radix_argsort_i32.argtypes = [i32p, ctypes.c_int64, i32p]
     lib.sort_unique_inverse_i64.restype = ctypes.c_int64
@@ -112,6 +126,95 @@ def available() -> bool:
 
 def _p(arr, typ):
     return arr.ctypes.data_as(ctypes.POINTER(typ))
+
+
+def extract_faces(conn: np.ndarray, face_table: np.ndarray,
+                  opposite: Optional[np.ndarray] = None):
+    """(boundary_faces, boundary_opposite, shared [S, 2, 2]) through the
+    native hash table, in element-major first-visit order; None without
+    the library (the caller falls back to numpy)."""
+    lib = _load()
+    if lib is None:
+        return None
+    conn = np.ascontiguousarray(conn, dtype=np.int32)
+    face_table = np.ascontiguousarray(face_table, dtype=np.int32)
+    M, k = conn.shape
+    n_faces, fw = face_table.shape
+    boundary = np.empty((M * n_faces, fw), np.int32)
+    b_opp = np.empty(M * n_faces, np.int32)
+    shared = np.empty((M * n_faces // 2 + 1, 4), np.int32)
+    nb = np.zeros(1, np.int64)
+    ns = np.zeros(1, np.int64)
+    opp = (np.ascontiguousarray(opposite, dtype=np.int32)
+           if opposite is not None else None)
+    rc = lib.extract_faces(
+        _p(conn, ctypes.c_int32), M, k, _p(face_table, ctypes.c_int32),
+        n_faces, fw, _p(boundary, ctypes.c_int32), _p(nb, ctypes.c_int64),
+        _p(b_opp, ctypes.c_int32) if opp is not None else None,
+        _p(opp, ctypes.c_int32) if opp is not None else None,
+        _p(shared, ctypes.c_int32), _p(ns, ctypes.c_int64))
+    if rc != 0:
+        return None
+    nb, ns = int(nb[0]), int(ns[0])
+    return (boundary[:nb].copy(),
+            b_opp[:nb].copy() if opp is not None else None,
+            shared[:ns].reshape(ns, 2, 2).copy())
+
+
+def region_grow(indptr: np.ndarray, indices: np.ndarray, seeds: np.ndarray,
+                n_parts: int) -> Optional[np.ndarray]:
+    """Multi-source BFS labels [n] int64 on a CSR graph (the lowest part
+    id wins a contested vertex), or None."""
+    lib = _load()
+    if lib is None:
+        return None
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    seeds = np.ascontiguousarray(seeds, dtype=np.int32)
+    n = indptr.shape[0] - 1
+    labels = np.empty(n, np.int64)
+    rc = lib.region_grow(_p(indptr, ctypes.c_int64),
+                         _p(indices, ctypes.c_int32), n,
+                         _p(seeds, ctypes.c_int32), n_parts,
+                         _p(labels, ctypes.c_int64))
+    return labels if rc == 0 else None
+
+
+def bfs_distances(indptr: np.ndarray, indices: np.ndarray,
+                  sources: np.ndarray) -> Optional[np.ndarray]:
+    """BFS hop distances [n] int64 from a source set (-1: unreachable),
+    or None."""
+    lib = _load()
+    if lib is None:
+        return None
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    sources = np.ascontiguousarray(sources, dtype=np.int32)
+    n = indptr.shape[0] - 1
+    dist = np.empty(n, np.int64)
+    rc = lib.bfs_distances(_p(indptr, ctypes.c_int64),
+                           _p(indices, ctypes.c_int32), n,
+                           _p(sources, ctypes.c_int32), sources.shape[0],
+                           _p(dist, ctypes.c_int64))
+    return dist if rc == 0 else None
+
+
+def unique_edges(conn: np.ndarray, edge_table: np.ndarray
+                 ) -> Optional[np.ndarray]:
+    """Unique undirected edges [E, 2] (smaller node first) in first-visit
+    order, or None."""
+    lib = _load()
+    if lib is None:
+        return None
+    conn = np.ascontiguousarray(conn, dtype=np.int32)
+    edge_table = np.ascontiguousarray(edge_table, dtype=np.int32)
+    M, k = conn.shape
+    ne_tbl = edge_table.shape[0]
+    out = np.empty((M * ne_tbl, 2), np.int32)
+    ne = lib.unique_edges(_p(conn, ctypes.c_int32), M, k,
+                          _p(edge_table, ctypes.c_int32), ne_tbl,
+                          _p(out, ctypes.c_int32))
+    return out[:ne].copy() if ne >= 0 else None
 
 
 def radix_argsort(keys: np.ndarray) -> Optional[np.ndarray]:

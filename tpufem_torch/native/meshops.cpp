@@ -1,10 +1,13 @@
 // Native host engine for the packed plan build of tpufem_torch.
 //
 // A copy of the entry points of tpufem/native/meshops.cpp that the packed
-// plan build (tpufem_torch.ops.packed.PackedPlan.build) and the c3d10 box
-// mesh generator (tpufem_torch.utils.meshgen) call: radix sorts, first-touch
-// numbering, per-cluster slot lists, window tables and the byte-packed
-// incidence fills.  Plain C ABI for ctypes; every output is deterministic
+// plan build (tpufem_torch.ops.packed.PackedPlan.build), the c3d10 box mesh
+// generator (tpufem_torch.utils.meshgen), the topology tools
+// (tpufem_torch.topology.faces, .edges) and the partitioner
+// (tpufem_torch.parallel.partition) call: radix sorts, first-touch
+// numbering, per-cluster slot lists, window tables, the byte-packed
+// incidence fills, face and edge hashing, BFS distances and multi-source
+// region growing.  Plain C ABI for ctypes; every output is deterministic
 // and equal to the numpy fallback its caller keeps beside the call.
 
 #include <algorithm>
@@ -12,7 +15,251 @@
 #include <cstring>
 #include <vector>
 
+namespace {
+
+struct FaceKey {
+  int32_t n[4];  // sorted node ids, n[3] = -1 for triangles
+  bool operator==(const FaceKey& o) const {
+    return n[0] == o.n[0] && n[1] == o.n[1] && n[2] == o.n[2] && n[3] == o.n[3];
+  }
+};
+
+inline uint64_t hash_key(const FaceKey& k) {
+  uint64_t h = 1469598103934665603ull;
+  for (int i = 0; i < 4; ++i) {
+    h ^= static_cast<uint64_t>(static_cast<uint32_t>(k.n[i]));
+    h *= 1099511628211ull;
+  }
+  return h;
+}
+
+inline void sort_small(int32_t* v, int n) {
+  for (int i = 1; i < n; ++i) {
+    int32_t x = v[i];
+    int j = i - 1;
+    while (j >= 0 && v[j] > x) {
+      v[j + 1] = v[j];
+      --j;
+    }
+    v[j + 1] = x;
+  }
+}
+
+// Open-addressing table: slot -> first (elem, face) occurrence + count.
+struct FaceTable {
+  std::vector<FaceKey> keys;
+  std::vector<int64_t> first;   // encoded elem*16+face of first occurrence
+  std::vector<int64_t> second;  // second occurrence (or -1)
+  std::vector<uint8_t> count;   // saturating at 3
+  uint64_t mask;
+
+  explicit FaceTable(size_t n_faces) {
+    size_t cap = 1;
+    while (cap < n_faces * 2) cap <<= 1;
+    keys.resize(cap);
+    first.assign(cap, -1);
+    second.assign(cap, -1);
+    count.assign(cap, 0);
+    mask = cap - 1;
+  }
+
+  size_t insert(const FaceKey& k, int64_t enc) {
+    uint64_t h = hash_key(k) & mask;
+    while (true) {
+      if (count[h] == 0) {
+        keys[h] = k;
+        first[h] = enc;
+        count[h] = 1;
+        return h;
+      }
+      if (keys[h] == k) {
+        if (count[h] == 1) second[h] = enc;
+        if (count[h] < 3) ++count[h];
+        return h;
+      }
+      h = (h + 1) & mask;
+    }
+  }
+};
+
+}  // namespace
+
 extern "C" {
+
+// Generic face extraction.
+//   conn:        [M, k] element connectivity
+//   face_table:  [n_faces_per_elem, face_width] local node ids (-1 pad)
+// Outputs (caller-allocated to max size, returns actual counts):
+//   boundary_out [<= M*f, face_width+1]: face nodes (original order) + elem id
+//   shared_out   [<= M*f/2, 4]: elem1, face1, elem2, face2
+// Returns 0 on success.
+int32_t extract_faces(const int32_t* conn, int64_t M, int32_t k,
+                      const int32_t* face_table, int32_t n_faces,
+                      int32_t face_width, int32_t* boundary_out,
+                      int64_t* n_boundary, int32_t* boundary_opposite,
+                      const int32_t* opposite_table, int32_t* shared_out,
+                      int64_t* n_shared) {
+  FaceTable table(static_cast<size_t>(M) * n_faces);
+  std::vector<size_t> slots(static_cast<size_t>(M) * n_faces);
+  for (int64_t m = 0; m < M; ++m) {
+    for (int32_t f = 0; f < n_faces; ++f) {
+      FaceKey key;
+      int w = 0;
+      for (int32_t j = 0; j < face_width; ++j) {
+        int32_t local = face_table[f * face_width + j];
+        if (local >= 0) key.n[w++] = conn[m * k + local];
+      }
+      for (int j = w; j < 4; ++j) key.n[j] = -1;
+      sort_small(key.n, w);
+      slots[m * n_faces + f] = table.insert(key, m * 16 + f);
+    }
+  }
+  int64_t nb = 0, ns = 0;
+  // Deterministic order: iterate elements/faces in order, emit on first visit.
+  std::vector<uint8_t> emitted(table.keys.size(), 0);
+  for (int64_t m = 0; m < M; ++m) {
+    for (int32_t f = 0; f < n_faces; ++f) {
+      size_t s = slots[m * n_faces + f];
+      if (emitted[s]) continue;
+      emitted[s] = 1;
+      if (table.count[s] == 1) {
+        int64_t enc = table.first[s];
+        int64_t e = enc / 16;
+        int32_t lf = static_cast<int32_t>(enc % 16);
+        for (int32_t j = 0; j < face_width; ++j) {
+          int32_t local = face_table[lf * face_width + j];
+          boundary_out[nb * face_width + j] =
+              (local >= 0) ? conn[e * k + local] : -1;
+        }
+        if (boundary_opposite && opposite_table)
+          boundary_opposite[nb] = conn[e * k + opposite_table[lf]];
+        ++nb;
+      } else if (table.count[s] == 2) {
+        int64_t e1 = table.first[s], e2 = table.second[s];
+        shared_out[ns * 4 + 0] = static_cast<int32_t>(e1 / 16);
+        shared_out[ns * 4 + 1] = static_cast<int32_t>(e1 % 16);
+        shared_out[ns * 4 + 2] = static_cast<int32_t>(e2 / 16);
+        shared_out[ns * 4 + 3] = static_cast<int32_t>(e2 % 16);
+        ++ns;
+      }
+    }
+  }
+  *n_boundary = nb;
+  *n_shared = ns;
+  return 0;
+}
+
+// Multi-source BFS region growing on a CSR dual graph (deterministic:
+// lowest part id wins contested elements, matching the Python fallback).
+int32_t region_grow(const int64_t* indptr, const int32_t* indices, int64_t n,
+                    const int32_t* seeds, int32_t n_parts, int64_t* labels) {
+  for (int64_t i = 0; i < n; ++i) labels[i] = -1;
+  std::vector<std::vector<int32_t>> frontier(n_parts), next(n_parts);
+  for (int32_t p = 0; p < n_parts; ++p) {
+    labels[seeds[p]] = p;
+    frontier[p].push_back(seeds[p]);
+  }
+  std::vector<int32_t> claim(n, -1);
+  int64_t remaining = n - n_parts;
+  while (remaining > 0) {
+    bool any = false;
+    // claim pass: lowest part id wins (iterate parts in order)
+    for (int32_t p = 0; p < n_parts; ++p) {
+      next[p].clear();
+      for (int32_t u : frontier[p]) {
+        for (int64_t e = indptr[u]; e < indptr[u + 1]; ++e) {
+          int32_t v = indices[e];
+          if (labels[v] == -1 && claim[v] == -1) {
+            claim[v] = p;
+            next[p].push_back(v);
+            any = true;
+          }
+        }
+      }
+    }
+    if (!any) {
+      // disconnected leftovers -> smallest part
+      std::vector<int64_t> sizes(n_parts, 0);
+      for (int64_t i = 0; i < n; ++i)
+        if (labels[i] >= 0) ++sizes[labels[i]];
+      int32_t smallest = 0;
+      for (int32_t p = 1; p < n_parts; ++p)
+        if (sizes[p] < sizes[smallest]) smallest = p;
+      for (int64_t i = 0; i < n; ++i)
+        if (labels[i] == -1) {
+          labels[i] = smallest;
+          --remaining;
+        }
+      break;
+    }
+    for (int32_t p = 0; p < n_parts; ++p) {
+      for (int32_t v : next[p]) {
+        labels[v] = p;
+        claim[v] = -1;
+        --remaining;
+      }
+      frontier[p].swap(next[p]);
+    }
+  }
+  return 0;
+}
+
+// BFS distances from a source set (for distant-seed selection).
+int32_t bfs_distances(const int64_t* indptr, const int32_t* indices, int64_t n,
+                      const int32_t* sources, int64_t n_sources,
+                      int64_t* dist) {
+  for (int64_t i = 0; i < n; ++i) dist[i] = -1;
+  std::vector<int32_t> frontier, next;
+  for (int64_t i = 0; i < n_sources; ++i) {
+    if (dist[sources[i]] == -1) {
+      dist[sources[i]] = 0;
+      frontier.push_back(sources[i]);
+    }
+  }
+  int64_t d = 0;
+  while (!frontier.empty()) {
+    ++d;
+    next.clear();
+    for (int32_t u : frontier) {
+      for (int64_t e = indptr[u]; e < indptr[u + 1]; ++e) {
+        int32_t v = indices[e];
+        if (dist[v] == -1) {
+          dist[v] = d;
+          next.push_back(v);
+        }
+      }
+    }
+    frontier.swap(next);
+  }
+  return 0;
+}
+
+// Unique sorted edges from an element edge table; returns count.
+int64_t unique_edges(const int32_t* conn, int64_t M, int32_t k,
+                     const int32_t* edge_table, int32_t n_edges,
+                     int32_t* edges_out /* [<= M*n_edges, 2] */) {
+  FaceTable table(static_cast<size_t>(M) * n_edges);
+  std::vector<size_t> slots;
+  slots.reserve(static_cast<size_t>(M) * n_edges);
+  for (int64_t m = 0; m < M; ++m) {
+    for (int32_t e = 0; e < n_edges; ++e) {
+      int32_t a = conn[m * k + edge_table[e * 2]];
+      int32_t b = conn[m * k + edge_table[e * 2 + 1]];
+      FaceKey key{{a < b ? a : b, a < b ? b : a, -1, -1}};
+      slots.push_back(table.insert(key, m * 16 + e));
+    }
+  }
+  std::vector<uint8_t> emitted(table.keys.size(), 0);
+  int64_t ne = 0;
+  for (size_t s : slots) {
+    if (emitted[s]) continue;
+    emitted[s] = 1;
+    edges_out[ne * 2] = table.keys[s].n[0];
+    edges_out[ne * 2 + 1] = table.keys[s].n[1];
+    ++ne;
+  }
+  return ne;
+}
 
 // Stable LSD radix argsort of int32 keys (non-negative), for scatter plans.
 int32_t radix_argsort_i32(const int32_t* keys, int64_t n, int32_t* perm_out) {

@@ -13,7 +13,14 @@ The port of tpufem/ops/clustered.py's ClusterPlan and ClusteredOperator:
 tpufem contracts one-hot selections on the MXU (or, with use_pallas, in
 Pallas kernels); the port has one path, the kernels, whose plain versions
 stand in on the CPU.  Deterministic: fixed cluster order, fixed sum order.
-ClusteredPartialOperator is not ported yet.
+
+ClusteredPartialOperator keeps no element K: the in-cluster expand and
+compress around tpufem's component-unrolled partial-assembly action
+(ops.partial.pa_apply_components).  On a CUDA device they are K7a and K7b
+whatever ``use_pallas`` says (the flag keeps tpufem's signature); on the
+CPU ``use_pallas=False`` contracts tpufem's one-hot selections
+(ClusterPlan.onehot) and ``use_pallas=True`` runs the kernels' plain
+versions.
 """
 from __future__ import annotations
 
@@ -51,6 +58,13 @@ class ClusterPlan:
     @property
     def device(self) -> torch.device:
         return self.l2g.device
+
+    def onehot(self, dtype) -> torch.Tensor:
+        """[B, E_c*k, L] exact 0/1 selection matrices (tpufem's MXU form of
+        the in-cluster gather and sum, built on the fly)."""
+        lc = self.lconn.reshape(self.n_clusters, -1).long()
+        iota = torch.arange(self.l_max, device=lc.device)
+        return (lc[:, :, None] == iota).to(dtype)
 
     def to(self, device) -> "ClusterPlan":
         dev = torch.device(device)
@@ -169,3 +183,127 @@ class ClusteredOperator(torch.nn.Module):
         Yc = cluster_compress(p.lconn.reshape(B, -1),
                               d.reshape(B, -1, nd).contiguous(), L)
         return p.combine(Yc.reshape(B * L, nd)).reshape(-1)
+
+
+class ClusteredPartialOperator(torch.nn.Module):
+    """Cluster-structured geometry-factor SpMV: no element K in memory.
+
+    Buffers: Jinv [Mpad, qJ, 9] (qJ in {1, q}) and W [Mpad, q] (w * detJ),
+    zero rows for the padding elements of the last cluster; dN [q, k, 3]
+    stays a host constant (pa_apply_components skips its zero weights).
+    Three values per node (a solid)."""
+
+    def __init__(self, Jinv: torch.Tensor, W: torch.Tensor, dN: np.ndarray,
+                 plan: ClusterPlan, lam_mu, use_pallas: bool = False):
+        super().__init__()
+        self.register_buffer("Jinv", Jinv)
+        self.register_buffer("W", W)
+        self.dN = np.asarray(dN, np.float64)
+        self.plan = plan
+        self.lam_mu = (float(lam_mu[0]), float(lam_mu[1]))
+        self.use_pallas = bool(use_pallas)
+
+    @staticmethod
+    def build(coords, conn, etype: str, E: float, nu: float,
+              rule: str = "default", plan: Optional[ClusterPlan] = None,
+              affine: Optional[bool] = None, dtype=None,
+              use_pallas: bool = False, n_nodes: Optional[int] = None,
+              device=None, **plan_kw) -> "ClusteredPartialOperator":
+        """The geometry of conn [M, k] on the plan's device (a plan is
+        built from conn when None, on `device`; None: the CUDA card)."""
+        from ..core.materials import lame_parameters
+        from ..elements.tables import element_table
+        from .partial import chunked_geometry
+
+        conn = np.asarray(conn)
+        table = element_table(etype, rule)
+        if plan is None:
+            if n_nodes is None:
+                raise ValueError(
+                    "ClusteredPartialOperator.build needs the true node "
+                    "count: pass n_nodes= (conn.max()+1 silently drops "
+                    "trailing unreferenced nodes) or a prebuilt plan=")
+            plan = ClusterPlan.build(conn, int(n_nodes), 3, device=device,
+                                     **plan_kw)
+        dev = plan.device
+        coords_t = torch.as_tensor(
+            coords if isinstance(coords, torch.Tensor)
+            else np.asarray(coords), device=dev)
+        dtype = dtype or coords_t.dtype
+        Jinv, W, is_affine = chunked_geometry(
+            coords_t.to(dtype), torch.as_tensor(conn, device=dev), table,
+            dtype)
+        if affine is None:
+            affine = is_affine
+        if affine:
+            Jinv = Jinv[:, :1]
+        Jflat = Jinv.reshape(Jinv.shape[0], Jinv.shape[1], 9)
+        Mpad = plan.n_clusters * plan.elems_per_cluster
+        pad = Mpad - conn.shape[0]
+        if pad:
+            Jflat = torch.cat([Jflat, Jflat.new_zeros(
+                (pad, Jflat.shape[1], 9))], dim=0)
+            W = torch.cat([W, W.new_zeros((pad, W.shape[1]))], dim=0)
+        lam, mu = lame_parameters(E, nu)
+        return ClusteredPartialOperator(Jflat.contiguous(), W.contiguous(),
+                                        table.dN, plan, (lam, mu),
+                                        use_pallas)
+
+    def _kernels(self, x: torch.Tensor) -> bool:
+        return x.device.type == "cuda" or self.use_pallas
+
+    def _expand(self, u: torch.Tensor):
+        """u [N, 3] -> tuple of 3 tensors [Mpad, k] (element nodal values)."""
+        from .cluster_kernels import cluster_expand
+        p = self.plan
+        B, E_c = p.n_clusters, p.elems_per_cluster
+        k = self.dN.shape[1]
+        Uc = u[p.l2g.long()]                                # [B, L, 3]
+        if self._kernels(Uc):
+            ue = cluster_expand(p.lconn.reshape(B, -1), Uc)
+        else:
+            ue = torch.einsum("bel,blc->bec", p.onehot(u.dtype), Uc)
+        return tuple(ue[..., c].reshape(B * E_c, k) for c in range(3))
+
+    def _compress(self, Fe_cols, dtype) -> torch.Tensor:
+        """tuple of 3 tensors [Mpad, k] -> Yc [B, L, 3]."""
+        p = self.plan
+        B, L = p.n_clusters, p.l_max
+        Fe = torch.stack([f.reshape(B, -1) for f in Fe_cols], dim=-1)
+        if self._kernels(Fe):
+            return cluster_compress(p.lconn.reshape(B, -1), Fe, L)
+        return torch.einsum("bel,bec->blc", p.onehot(dtype), Fe)
+
+    def forward(self, u: torch.Tensor) -> torch.Tensor:
+        from .partial import pa_apply_components
+        p = self.plan
+        lam, mu = self.lam_mu
+        Fe_cols = pa_apply_components(self._expand(u), self.Jinv, self.W,
+                                      self.dN, lam, mu)
+        Yc = self._compress(Fe_cols, u.dtype)
+        return p.combine(Yc.reshape(p.n_clusters * p.l_max, 3))
+
+    def diagonal(self) -> torch.Tensor:
+        """Assembled diagonal [n_dof]: d[3i+a] = sum_q W ((lam+mu) g_ia^2
+        + mu |g_i|^2), component form."""
+        p = self.plan
+        lam, mu = self.lam_mu
+        q = self.W.shape[1]
+        qJ = self.Jinv.shape[1]
+        dN = self.dN
+        k = dN.shape[1]
+        d_cols = [None, None, None]
+        for qi in range(q):
+            Wq = self.W[:, qi]
+            for a in range(3):
+                col = []
+                for kk in range(k):
+                    g = [sum(float(dN[qi, kk, j])
+                             * self.Jinv[:, min(qi, qJ - 1), 3 * i + j]
+                             for j in range(3)) for i in range(3)]
+                    norm2 = g[0] * g[0] + g[1] * g[1] + g[2] * g[2]
+                    col.append(Wq * ((lam + mu) * g[a] * g[a] + mu * norm2))
+                col = torch.stack(col, dim=1)               # [Mpad, k]
+                d_cols[a] = col if d_cols[a] is None else d_cols[a] + col
+        Yc = self._compress(tuple(d_cols), self.W.dtype)
+        return p.combine(Yc.reshape(p.n_clusters * p.l_max, 3)).reshape(-1)

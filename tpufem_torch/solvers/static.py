@@ -9,8 +9,10 @@ out of the Krylov space by the `live` mask.  Two assembled operators:
 "assembled" (MatrixFreeOperator over a ScatterPlan) and "clustered"
 (ClusteredOperator, kernels K7a/K7b, for the solid blocks); both on the
 element K of solid.stiffness (kernel K6 for k <= 10 types); shells run
-elements.shell.ShellOperator.  PyTorch runs eagerly, so there is no jit:
-setup runs once and cg loops on the device.
+elements.shell.ShellOperator.  operator="partial" runs each solid block
+on ops.partial.PartialAssemblyOperator (geometry factors, no element K,
+affine=False as in tpufem) over a ScatterPlan.  PyTorch runs eagerly, so
+there is no jit: setup runs once and cg loops on the device.
 
 operator="packed" solves one solid block on the packed operator
 (ops.packed.PackedSystem) and several blocks, or solids with shells, on
@@ -18,8 +20,6 @@ ops.packed_mixed.PackedMixedSystem (the largest solid block packed, the
 rest bridged through [N, 3] / [N, 6] at each apply); SPC/RBE2/RBE3
 through PackedConstraints, PCG as CUDA graphs on the card.  Both return
 [N, 6] as tpufem does.
-
-Not ported yet: operator="partial" (ROADMAP §1 queue item 7).
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ from ..ops.scatter import ScatterPlan
 from .cg import cg
 from .constraints import Constraints
 
-OPERATORS = ("assembled", "clustered", "packed")
+OPERATORS = ("assembled", "clustered", "packed", "partial")
 
 
 class StaticModel(torch.nn.Module):
@@ -80,10 +80,6 @@ class StaticModel(torch.nn.Module):
 
 
 def _check_blocks(blocks: Dict, operator: str) -> None:
-    if operator == "partial":
-        raise NotImplementedError(
-            "operator='partial' (PartialAssemblyOperator) is not ported yet "
-            "(ROADMAP §1 queue item 7)")
     if operator not in OPERATORS:
         raise ValueError(f"operator must be one of {OPERATORS}, got "
                          f"{operator!r}")
@@ -127,6 +123,15 @@ def build_static_model(coords, blocks: Dict[str, np.ndarray], material: dict,
         conn_np = np.asarray(conn)
         conn_t = torch.as_tensor(conn_np, device=dev)
         t0 = time.perf_counter()
+        if et in SOLID_TYPES and operator == "partial":
+            from ..ops.partial import PartialAssemblyOperator
+            plan = ScatterPlan.build(conn_np, N, 3, device=dev)
+            t0 = tick("plans", t0)
+            ops.append(PartialAssemblyOperator.build(
+                coords_t, conn_np, et, material["E"], material["nu"],
+                plan=plan, affine=False))
+            tick("operator", t0)
+            continue
         if et in SHELL_TYPES:
             K = shell_mod.shell_stiffness(coords_t, conn_t,
                                           material["membrane"],
