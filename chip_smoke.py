@@ -4,16 +4,19 @@ card: the refined packed c3d10 solve, the assembled-stiffness static
 solve, the staged packed pipeline under the block-Jacobi refined solve,
 the relayout, row-read and planar-I/O probes, the converged refined solve
 at tpufem's largest size, the rest of the solver family with the mixed
-solid + shell driver, and Schur substructuring at BASELINE config 4 with
-the remaining operators.  Every PCG and BiCGStab solve runs its
-32-iteration blocks, and GMRES each restart cycle, as CUDA graphs.
+solid + shell driver, Schur substructuring at BASELINE config 4 with
+the remaining operators, and the reference's end-to-end SimJEB workload
+with the io, profiling and checkpoint tools and the examples.  Every PCG
+and BiCGStab solve runs its 32-iteration blocks, and GMRES each restart
+cycle, as CUDA graphs.
 
     python3 chip_smoke.py            # box_tet10(55): 1.00M elements, 4.1M
                                      # DOF; phase 11 at box_tet10(119)
     python3 chip_smoke.py --n 10 --scale-n 20 --mixed-n 8 --plate-n 16 \
-        --hybrid-n 12 --hybrid-parts 32 --bsr-n 6   # a quick check
+        --hybrid-n 12 --hybrid-parts 32 --bsr-n 6 --workload-n 10
+                                     # a quick check
     python3 chip_smoke.py --phases staged   # some paths (packed, static,
-                                # staged, probes, scale, family, hybrid)
+                    # staged, probes, scale, family, hybrid, workload)
     python3 chip_smoke.py --phases turns    # K6, K5b and K3 alone (run
                         # from copies of two trees in turns to compare them)
 
@@ -213,6 +216,42 @@ printed):
        assemble_bsr and bsr_matvec at box_tet10(--bsr-n, default 20)
        against ClusteredOperator on the same K6 element matrices (1e-12
        relative, apply and diagonal).
+  The reference's end-to-end SimJEB workload and the host tools (phase
+  14, workload; SimJEB's material, E = 113.8e9, nu = 0.342):
+  14a. find_spec of h5py, yaml and plotly (without h5py a line says so and
+       the sample's datasets stay in memory: the same pipeline,
+       workloads.simjeb._run_mesh_file, runs from them); the bundle
+       box_tet10(--workload-n, default 44: 44, 44, 88; 1,022,208 c3d10
+       elements, 1,402,017 nodes) synthesized on the card in float64
+       (z = 0 the rbe2 set, -1e4 in z on the z = 2 rbe3 set, PCG to 1e-8
+       ||F|| capped at tpufem's 4000 iterations), its mesh.vtu written;
+       run B (f64, cold start, tol 1e-8, at most 20000 iterations),
+       every count 0 first; fails unless CONVERGED, residual_solve < 1e-3
+       residual_zero and <= 1.5 residual_truth + 1e-6 residual_zero
+       (tpufem's bars), equilibrium < 1, equilibrium_mean < 0.35, vm_max
+       finite and positive, the result .vtu reads back with the mesh's
+       points and connectivity, and K1-K3 launched; run A, the
+       notebook's flow (f32, warm start, tol 1e-6, at most 2000), under
+       torch.profiler, whose device records count K1-K3: the same gates
+       but CONVERGED or MAX_ITER in place of CONVERGED and the residual
+       ratios reported, not gated (tpufem's bars are f64 bars: its own f32
+       workload misses them), beside the f32 solution's distance from
+       run B's; each run's stage seconds (read, operator, solve, stress,
+       faces, result write);
+       then, on the phase's own plan, one apply (K1, K2) and the Jacobi
+       diagonal (K3, K2) against the plain versions: bitwise in f32,
+       <= 1e-13 relative in f64;
+  14b. checkpointed_cg on the f64 packed system (tol 1e-11 ||b||, chunks
+       of 2000 iterations): a one-shot cg, a first call stopped at 1000
+       iterations (half the one-shot count where that is fewer),
+       a second resumed from the file to CONVERGED, within 1e-8
+       (relative, max-norm) of the one-shot; profiling.timed of one f32
+       apply beside its torch.profiler device time (median of three
+       windows); profiling.trace's Chrome trace of five applies, taken up
+       to three times, failing unless an event names fused_yc; the three
+       examples (static_cantilever, simjeb_workload, packed_solve) at
+       their defaults, failing on NAN_INF (NOT_SPD too for the first
+       two) and unless static_cantilever launched K6.
   With --phases turns (not in the default): the timings of 8d (K6) and
   9d (K5b in turns with K3), by the same helpers, on box_tet10(n) alone.
   For before/after figures, copy this
@@ -223,8 +262,11 @@ It then prints {"kernels": [...]} (the static kernels' numbers are
 float64, the main path's type, with the float32 ones beside them; K1,
 K5b, K6, K7a and K7b add ms_min and ms_max; K1-K3 and K6 add
 family_launches and family_replayed, phase 12's; K1-K3, K6, K7a and K7b
-add hybrid_launches and hybrid_replayed, phase 13's), the
-card's name and power limit, and, last, {"ok": true, "device": ...}.
+add hybrid_launches and hybrid_replayed, phase 13's; K1-K3 add
+workload_launches, run A's by torch.profiler, and workload_run_b_launches,
+run B's by the wrappers' counts, and K6 workload_launches, the
+static_cantilever example's), the card's name and power limit, and, last,
+{"ok": true, "device": ...}.
 """
 from __future__ import annotations
 
@@ -2729,6 +2771,383 @@ def hybrid_phase(args, dev):
             {k: v[1] for k, v in totals.items()})
 
 
+# phase 14's mesh: box_tet10(n, n, 2 n) over 1 x 1 x 2, the synthesized
+# SimJEB bundle's (tpufem's synthesize_simjeb_bundle with etype="c3d10")
+WORKLOAD_N = 44
+WORKLOAD_KERNELS = ("fused_yc_kernel", "combine_kernel",
+                    "compress_gather_kernel")
+WORKLOAD_MAX_ITER = 20000          # phase 14's f64 solves
+# phase 14b: checkpointed_cg's tolerance (relative to ||b||; the restarts
+# recompute the true residual, which f64 takes below this) and chunk length
+CKPT_TOL, CKPT_EVERY = 1e-11, 2000
+
+
+def vtu_point_data(path: str):
+    """{name: [N, c] float64} of a write_vtu file's appended point data."""
+    import re
+    with open(path, "rb") as f:
+        data = f.read()
+    mark = data.find(b"<AppendedData")
+    payload = data[data.find(b"_", data.find(b">", mark)) + 1:]
+    out = {}
+    for name, nc, off in re.findall(
+            rb'Name="([^"]+)" NumberOfComponents="(\d+)" format="appended"'
+            rb' offset="(\d+)"', data[:mark]):
+        off = int(off)
+        nbytes = int(np.frombuffer(payload, "<u8", 1, off)[0])
+        out[name.decode()] = np.frombuffer(payload, "<f8", nbytes // 8,
+                                           off + 8).reshape(-1, int(nc))
+    return out
+
+
+def pd_max_rel(path_a: str, path_b: str):
+    """{field: max |a - b| / max |b|} of two result files' point data."""
+    a, b = vtu_point_data(path_a), vtu_point_data(path_b)
+    return {k: float(np.abs(a[k] - b[k]).max() / np.abs(b[k]).max())
+            for k in b}
+
+
+def workload_phase(args, dev):
+    """The reference's end-to-end SimJEB workload and the host tools
+    (phase 14 of the module docstring).  Returns ({kernel: launches in run
+    A's workload, by torch.profiler's device records (K1-K3) or by the
+    wrapper's count (K6, static_cantilever)}, {kernel: wrapper count over
+    run B})."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import tpufem_torch as tt
+    from tpufem_torch.examples import (packed_solve, simjeb_workload,
+                                       static_cantilever)
+    from tpufem_torch.ops import fused_kernels as fk
+    from tpufem_torch.ops import packed_kernels as pk
+    from tpufem_torch.solvers.cg import (CONVERGED, MAX_ITER, NAN_INF,
+                                         NOT_SPD, cg)
+    from tpufem_torch.utils import checkpoint, profiling
+    from tpufem_torch.workloads import simjeb
+
+    f32, f64 = torch.float32, torch.float64
+    watched = (tt.FUSED_YC, tt.COMBINE, tt.COMPRESS_GATHER)
+    Es, nus = simjeb.SIMJEB_E, simjeb.SIMJEB_NU
+
+    def zero():
+        torch.cuda.synchronize()
+        for K in tt.KERNELS:
+            K.launches = K.replayed = 0
+
+    def read(label):
+        torch.cuda.synchronize()
+        out = {K.name: K.launches for K in watched}
+        for K in watched:
+            if K.launches <= 0:
+                fail(f"workload {label}: kernel {K.name} was not launched")
+        return out, ", ".join(f"{K.name} {K.launches} ({K.replayed} by "
+                              f"graph replays)" for K in watched)
+
+    specs = {m: importlib.util.find_spec(m) is not None
+             for m in ("h5py", "yaml", "plotly")}
+    log(f"workload: find_spec {specs}")
+    have_h5 = specs["h5py"]
+    if not have_h5:
+        log("workload: h5py is not installed on this machine, so the h5 "
+            "file layer (sample_0.h5's write and read) is not exercised "
+            "here: the sample's datasets stay in memory and the same "
+            "pipeline runs from them (workloads.simjeb._run_mesh_file, "
+            "which run_simjeb_workload calls after reading the h5 file); "
+            "the CPU tests hold the h5 layer")
+    n = args.workload_n
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_workload_")
+    prev = torch.get_default_dtype()
+    try:
+        # 14a. the bundle, synthesized on the card in float64
+        syn = {}
+        tt.enable_x64()
+        try:
+            t0 = time.perf_counter()
+            if have_h5:
+                p = tt.synthesize_simjeb_bundle(tmp, n=n, E=Es, nu=nus,
+                                                device=dev, etype="c3d10",
+                                                timings=syn)
+                mesh_path, h5_path = p["mesh"], p["h5"]
+                s_status, s_iters = p["status"], p["iterations"]
+                sample = None
+            else:
+                mesh_path, sample, info = simjeb._bundle_arrays(
+                    tmp, n, Es, nus, dev, "c3d10", simjeb._Stages(syn, dev))
+                s_status, s_iters = int(info.status), int(info.iterations)
+            t_syn = time.perf_counter() - t0
+        finally:
+            torch.set_default_dtype(prev)
+        log(f"workload 14a: bundle box_tet10({n}, {n}, {2 * n}) synthesized "
+            f"on the card in float64 in {t_syn:.2f} s (stages "
+            f"{ {k: round(v, 3) for k, v in syn.items()} }); synthesis PCG "
+            f"status {s_status}, iterations {s_iters}"
+            + (" (stopped at tpufem's 4000-iteration cap)"
+               if s_status == MAX_ITER and s_iters >= 4000 else ""))
+        if s_status in (NOT_SPD, NAN_INF):
+            fail(f"workload 14a: synthesis PCG status {s_status}")
+
+        def run(label, dtype, **kw):
+            tm = {}
+            kw.setdefault("out_path", None)
+            if dtype == f64:
+                tt.enable_x64()
+            try:
+                t0 = time.perf_counter()
+                if sample is None:
+                    m = tt.run_simjeb_workload(mesh_path, h5_path, E=Es,
+                                               nu=nus, device=dev,
+                                               timings=tm, **kw)
+                else:
+                    m = simjeb._run_mesh_file(
+                        mesh_path, sample, etype=None, dev=dev,
+                        stages=simjeb._Stages(tm, dev), E=Es, nu=nus,
+                        verbose=True, **kw)
+                secs = time.perf_counter() - t0
+            finally:
+                torch.set_default_dtype(prev)
+            log(f"workload {label}: {secs:.2f} s; stages "
+                f"{ {k: round(v, 3) for k, v in tm.items()} }; metrics {m}")
+            if m["status"] in (NOT_SPD, NAN_INF):
+                fail(f"workload {label}: PCG status {m['status']}")
+            return m
+
+        # run B: f64, cold start, to 1e-8 ||F||
+        res_b = os.path.join(tmp, "result_b.vtu")
+        zero()
+        mB = run("run B (f64, cold start, tol 1e-8)", f64, warm_start=False,
+                 tol=1e-8, max_iter=WORKLOAD_MAX_ITER, out_path=res_b)
+        countsB, txt = read("run B")
+        log(f"workload run B launches: {txt}")
+        coords, blocks = tt.vtk_io.read_vtu(mesh_path)
+        conn = blocks["c3d10"]
+        N, M = coords.shape[0], conn.shape[0]
+
+        def gates(label, m, res_path, checks):
+            checks += [
+                ("equilibrium < 1.0", m["equilibrium"] < 1.0),
+                ("equilibrium_mean < 0.35", m["equilibrium_mean"] < 0.35),
+                ("vm_max finite and positive",
+                 bool(np.isfinite(m["vm_max"]) and m["vm_max"] > 0))]
+            rc, rb = tt.vtk_io.read_vtu(res_path)
+            checks.append(("the result .vtu reads back with the mesh's "
+                           "points and connectivity",
+                           np.array_equal(rc, coords)
+                           and np.array_equal(rb["c3d10"], conn)))
+            for what, ok in checks:
+                if not ok:
+                    fail(f"workload {label}: not {what} ({m})")
+            log(f"workload {label}: {M} c3d10 elements, {N} nodes, {3 * N} "
+                f"DOF; gates {[w for w, _ in checks]} met")
+
+        gates("run B", mB, res_b, [
+            ("status CONVERGED", mB["status"] == CONVERGED),
+            ("residual_solve < 1e-3 residual_zero",
+             mB["residual_solve"] < 1e-3 * mB["residual_zero"]),
+            ("residual_solve <= 1.5 residual_truth + 1e-6 residual_zero",
+             mB["residual_solve"] <= 1.5 * mB["residual_truth"]
+             + 1e-6 * mB["residual_zero"])])
+
+        # run A: the notebook's flow (f32, warm start), profiled
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        res_a = os.path.join(tmp, "result_a.vtu")
+        zero()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            mA = run("run A (f32, warm start, tol 1e-6, 2000; profiled)",
+                     f32, warm_start=True, tol=1e-6, max_iter=2000,
+                     out_path=res_a)
+            torch.cuda.synchronize()
+        countsA, txt = read("run A")
+        prof_launches = {name: sum(e.count for e in prof.key_averages()
+                                   if e.device_type == DeviceType.CUDA
+                                   and name in e.key)
+                         for name in WORKLOAD_KERNELS}
+        del prof
+        log(f"workload run A launches: wrappers {txt}; torch.profiler's "
+            f"device records {prof_launches}")
+        for name, c in prof_launches.items():
+            if c <= 0:
+                fail(f"workload run A: torch.profiler recorded no {name}")
+        # tpufem's bars (tests/test_workload.py) are f64 bars: its f32
+        # workload misses them too (c3d10 box_tet10(3, 3, 6), on the CPU:
+        # residual_solve 3.06 residual_truth), since residual_truth is one
+        # f32 evaluation at the f64 truth and the f32 PCG's own residual
+        # lies above that floor.  Run A reports them beside the f32
+        # solution's distance from run B's.
+        dA = pd_max_rel(res_a, res_b)
+        log(f"workload run A (f32): residual_solve / residual_truth "
+            f"{mA['residual_solve'] / mA['residual_truth']:.3f} (tpufem's "
+            f"f64 bar 1.5), residual_solve / residual_zero "
+            f"{mA['residual_solve'] / mA['residual_zero']:.3e} (its f64 bar "
+            f"1e-3); against run B's f64 solution: displacement "
+            f"{dA['displacement']:.3e}, nodal von Mises "
+            f"{dA['von_mises']:.3e} (relative, max-norm)")
+        gates("run A", mA, res_a, [
+            ("status CONVERGED or MAX_ITER",
+             mA["status"] in (CONVERGED, MAX_ITER)),
+            ("finite residual sums", bool(np.isfinite(
+                [mA["residual_solve"], mA["residual_truth"]]).all()))])
+
+        # the kernels on the phase's plan against their plain versions
+        t0 = time.perf_counter()
+        plan = tt.PackedPlan.build(coords, conn, N, device=dev)
+        ops = {dt: tt.PackedPartialOperator.build(
+            coords, conn, "c3d10", Es, nus, plan=plan, dtype=dt, device=dev)
+            for dt in (f32, f64)}
+        torch.cuda.synchronize()
+        log(f"workload kernels: plan and both operators {time.perf_counter() - t0:.2f} s")
+        rng = np.random.default_rng(args.seed)
+        X = torch.as_tensor(rng.standard_normal((plan.meta.n_blocks, 384)),
+                            device=dev)
+        for dt, op in ops.items():
+            Xd = X.to(dt)
+            got = op(Xd)
+            want = op.combine_stage(op.fused_stage(Xd, kernel=fk.fused_yc_plain),
+                                    kernel=pk.combine_plain)
+            dg = op.diagonal()
+            dw = op.diagonal(compress=pk.compress_gather_plain,
+                             combine=pk.combine_plain)
+            torch.cuda.synchronize()
+            ra = float((got - want).abs().max() / want.abs().max())
+            rd = float((dg - dw).abs().max() / dw.abs().max())
+            log(f"workload kernels {str(dt)[6:]}: one apply (K1, K2) max rel "
+                f"{ra:.1e}, the Jacobi diagonal (K3, K2) {rd:.1e} against "
+                f"the plain versions")
+            if dt == f32 and not (torch.equal(got, want)
+                                  and torch.equal(dg, dw)):
+                fail(f"workload kernels f32: apply {ra:.3e}, diagonal "
+                     f"{rd:.3e}, not bitwise equal to the plain versions")
+            if not (ra <= 1e-13 and rd <= 1e-13):
+                fail(f"workload kernels f64: apply {ra:.3e}, diagonal "
+                     f"{rd:.3e} above 1e-13")
+        del got, want, dg, dw
+
+        # 14b. checkpointed_cg on the f64 packed system
+        op64 = ops[f64]
+        rbe2 = tt.meshgen.boundary_nodes(coords, 2, 0.0)
+        F = np.zeros((N, 3))
+        F[tt.meshgen.boundary_nodes(coords, 2, 2.0), 2] = -1e4
+        system = tt.PackedSystem(op64, fixed_nodes=rbe2)
+        bX = system.pc.project_residual(plan.pack(torch.as_tensor(F, device=dev)))
+        kw = dict(constraints=system.pc, M_inv=system.M_inv,
+                  tol=CKPT_TOL * float(torch.linalg.norm(bX)))
+        t0 = time.perf_counter()
+        u_ref, i_ref = cg(op64, bX, max_iter=WORKLOAD_MAX_ITER, **kw)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter() - t0
+        # the first call stops at 1000 iterations, or at half the one-shot
+        # count where the solve takes fewer than 2000 (small meshes)
+        stop = min(1000, int(i_ref.iterations) // 2)
+        path = os.path.join(tmp, "cg_state")
+        t0 = time.perf_counter()
+        u1, i1, d1 = checkpoint.checkpointed_cg(
+            op64, bX, path, every=CKPT_EVERY, total_iter=stop, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter() - t0
+        saved = checkpoint.load_state(path)
+        t0 = time.perf_counter()
+        u2, i2, d2 = checkpoint.checkpointed_cg(
+            op64, bX, path, every=CKPT_EVERY,
+            total_iter=WORKLOAD_MAX_ITER, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter() - t0
+        rel = float((u2 - u_ref).abs().max() / u_ref.abs().max())
+        log(f"workload 14b checkpointed_cg (f64, tol {CKPT_TOL:g} "
+            f"||b||, chunks of {CKPT_EVERY}): first call {d1} "
+            f"iterations, status {int(i1.status)}, {t1:.2f} s, saved "
+            f"iterations {int(saved['iterations'])}; resumed call to "
+            f"{d2} iterations, status {int(i2.status)}, {t2:.2f} s; "
+            f"one-shot cg {int(i_ref.iterations)} iterations, status "
+            f"{int(i_ref.status)}, {t3:.2f} s; resumed against one-shot "
+            f"max rel {rel:.3e} (gate 1e-8)")
+        if not (int(i_ref.status) == CONVERGED and stop > 0 and d1 == stop
+                and int(i1.status) == MAX_ITER
+                and int(saved["iterations"]) == stop):
+            fail(f"workload 14b: the one-shot cg did not converge, or the "
+                 f"first checkpointed call did not stop at {stop} "
+                 f"iterations")
+        if not (int(i2.status) == CONVERGED and d2 > d1):
+            fail("workload 14b: the resumed cg did not converge")
+        if not rel <= 1e-8:
+            fail(f"workload 14b: resumed solve {rel:.3e} from the one-shot")
+        del u1, u2, u_ref, system, bX, op64
+
+        # profiling.timed and trace on one f32 packed apply
+        op32 = ops[f32]
+        X32 = X.to(f32)
+        t_host = profiling.timed(lambda: op32(X32), reps=20) * 1e3
+        # a profiler window now and then misses some of a kernel's
+        # launches (as in kernel_device_ms): the median of three windows,
+        # and up to three traces of five applies each
+        t_dev = statistics.median(total_device_ms(lambda: op32(X32), 20)
+                                  for _ in range(3))
+        for attempt in range(3):
+            with profiling.trace(os.path.join(tmp, "trace")) as tr:
+                for _ in range(5):
+                    op32(X32)
+            with open(tr.trace_path) as f:
+                names = [e.get("name", "")
+                         for e in json.load(f)["traceEvents"]]
+            hits = sum("fused_yc" in nm for nm in names)
+            if hits:
+                break
+            log(f"  profiling.trace recorded no fused_yc (attempt "
+                f"{attempt + 1}; {len(names)} events)")
+        log(f"workload 14b: profiling.timed of one f32 apply {t_host:.4f} ms "
+            f"(host, median of 20, result read back) against "
+            f"{t_dev:.4f} ms of device time (torch.profiler, median of "
+            f"three windows); profiling.trace of five applies wrote "
+            f"{os.path.basename(tr.trace_path)}, {len(names)} events, "
+            f"{hits} naming fused_yc")
+        if hits <= 0:
+            fail("workload 14b: the trace names no fused_yc event")
+        del ops, op32, plan, X, X32
+        torch.cuda.empty_cache()
+
+        # the three examples at their default sizes
+        ex_out = os.path.join(tmp, "cantilever.vtk")
+        for name, fn in (("static_cantilever", lambda: static_cantilever.main(
+                ["--out", ex_out])),
+                         ("simjeb_workload", lambda: simjeb_workload.main([])),
+                         ("packed_solve", lambda: packed_solve.main([]))):
+            zero()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = {K.name: K.launches for K in tt.KERNELS if K.launches}
+            log(f"workload example {name}: returned in {secs:.2f} s; "
+                f"launches {counts}")
+            if name == "static_cantilever":
+                k6 = tt.STIFFNESS_FUSED.launches
+                info, uz = out
+                if k6 <= 0:
+                    fail("workload example static_cantilever: no "
+                         "stiffness_fused launch")
+                if int(info.status) in (NOT_SPD, NAN_INF) or not uz < 0:
+                    fail(f"workload example static_cantilever: status "
+                         f"{int(info.status)}, tip {uz}")
+            elif name == "simjeb_workload":
+                if out[0]["status"] in (NOT_SPD, NAN_INF):
+                    fail(f"workload example simjeb_workload: status "
+                         f"{out[0]['status']}")
+            else:
+                for pre, (info, uz) in out.items():
+                    if int(info.status) == NAN_INF or not np.isfinite(uz):
+                        fail(f"workload example packed_solve {pre}: status "
+                             f"{int(info.status)}, tip {uz}")
+    finally:
+        torch.set_default_dtype(prev)
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(zip((K.name for K in watched),
+                        (prof_launches[k] for k in WORKLOAD_KERNELS)))
+    launches[tt.STIFFNESS_FUSED.name] = k6
+    return launches, countsB
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=55,
@@ -2737,9 +3156,9 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--phases",
                     default="packed,static,staged,probes,scale,family,"
-                    "hybrid",
+                    "hybrid,workload",
                     help="comma-separated subset of packed, static, staged, "
-                    "probes, scale, family, hybrid, turns")
+                    "probes, scale, family, hybrid, workload, turns")
     ap.add_argument("--scale-n", type=int, default=119,
                     help="phase 11's mesh: box_tet10(n, n, n)")
     ap.add_argument("--mixed-n", type=int, default=64,
@@ -2752,10 +3171,12 @@ def main() -> None:
                     help="phase 13a's RCB part count")
     ap.add_argument("--bsr-n", type=int, default=20,
                     help="phase 13c's BSR check: box_tet10(n, n, n)")
+    ap.add_argument("--workload-n", type=int, default=WORKLOAD_N,
+                    help="phase 14's bundle: box_tet10(n, n, 2 n)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not phases <= {"packed", "static", "staged", "probes", "scale",
-                      "family", "hybrid", "turns"}:
+                      "family", "hybrid", "workload", "turns"}:
         ap.error(f"unknown phases {phases}")
 
     if not torch.cuda.is_available():
@@ -2851,6 +3272,16 @@ def main() -> None:
                 r["hybrid_launches"] = hyb[r["name"]]
                 r["hybrid_replayed"] = hyb_replayed[r["name"]]
         log(f"phase hybrid: {time.perf_counter() - t0:.1f} s")
+    if "workload" in phases:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        wl, wl_b = workload_phase(args, dev)
+        for r in rows:
+            if r["name"] in wl:
+                r["workload_launches"] = wl[r["name"]]
+            if r["name"] in wl_b:
+                r["workload_run_b_launches"] = wl_b[r["name"]]
+        log(f"phase workload: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1111,6 +1111,107 @@ def test_hybrid_interface_pcg_graph_bitwise_vs_eager(cuda_device, dt):
     assert torch.equal(info.history, h1)
 
 
+def _workload(dev, bundle=None):
+    """The SimJEB workload at c3d4 n = 3 in float64 from its arrays (the
+    pipeline run_simjeb_workload runs after ingest; no h5 file, which this
+    machine may not read): synthesized on `dev`, or run from `bundle`.
+    Returns ((synthesis SolveInfo, arrays) or None, metrics)."""
+    from tpufem_torch.workloads import simjeb
+    prev = torch.get_default_dtype()
+    tpufem_torch.enable_x64()
+    try:
+        stages = simjeb._Stages(None, dev)
+        syn = None
+        if bundle is None:
+            *arrays, info = simjeb._synthesize_arrays(
+                3, simjeb.SIMJEB_E, simjeb.SIMJEB_NU, dev, "c3d4", stages)
+            syn = bundle = (info, arrays)
+        coords, conn, rbe2, rbe3, _, u = bundle[1]
+        outputs = np.zeros((coords.shape[0], 1, 6))
+        outputs[:, 0, :3] = u
+        m = simjeb._run_arrays(
+            coords, conn, "c3d4", {"rbe2": rbe2, "rbe3": rbe3,
+                                   "outputs": outputs},
+            E=simjeb.SIMJEB_E, nu=simjeb.SIMJEB_NU, tol=1e-8, max_iter=2000,
+            warm_start=False, dev=dev, out_path=None, verbose=False,
+            stages=stages)
+    finally:
+        torch.set_default_dtype(prev)
+    return syn, m
+
+
+@pytest.mark.cuda
+def test_workload_on_card_vs_cpu(cuda_device):
+    """The workload on the card against the same calls on the CPU (f64).
+
+    The PCG counts agree within one: the f64 dots reduce in another order
+    on the card, and at this size a 1e-15 relative change of the right-
+    hand side moves the last residuals by a few percent and the count
+    across the 1e-8 tolerance (71 or 72 for the synthesis; measured on
+    the CPU).  Both synthesized truths agree to 1e-9 (one iteration moves
+    them 3.8e-10).  From the one CPU bundle, residual_zero and
+    residual_truth (no solve) agree to 1e-9 of residual_zero; the solve's
+    metrics within what one iteration moves them (measured on the CPU:
+    residual_solve 6.5e-9 of residual_zero, equilibrium 3.5e-9, vm_max
+    2.2e-10 relative): 1e-8."""
+    cpu = torch.device("cpu")
+    (gi, garr), _ = _workload(cuda_device)
+    bundle, cm = _workload(cpu)
+    ci, carr = bundle
+    assert int(gi.status) == int(ci.status) == 1
+    assert abs(int(gi.iterations) - int(ci.iterations)) <= 1
+    gu, cu = garr[-1], carr[-1]
+    np.testing.assert_allclose(gu, cu, rtol=0, atol=1e-9 * np.abs(cu).max())
+    _, gm = _workload(cuda_device, bundle)
+    assert gm["status"] == cm["status"] == 1
+    assert abs(gm["iterations"] - cm["iterations"]) <= 1
+    scale = cm["residual_zero"]
+    for k in ("residual_zero", "residual_truth"):
+        assert abs(gm[k] - cm[k]) <= 1e-9 * scale, k
+    assert abs(gm["residual_solve"] - cm["residual_solve"]) <= 1e-8 * scale
+    for k in ("vm_max", "equilibrium", "equilibrium_mean"):
+        assert abs(gm[k] - cm[k]) <= 1e-8 * abs(cm[k]), k
+
+
+@pytest.mark.cuda
+def test_checkpointed_cg_on_card(cuda_device, tmp_path):
+    """checkpointed_cg on a packed f64 system on the card: a first call
+    stops at its iteration budget, a second resumes from the file and
+    converges, within 1e-8 of a one-shot cg; the first call's count and
+    saved state are the CPU's."""
+    from tpufem_torch.solvers.cg import CONVERGED, MAX_ITER
+    from tpufem_torch.utils import checkpoint
+    coords, conn = tpufem_torch.meshgen.box_tet10(3, 3, 6, 1.0, 1.0, 2.0)
+    N = coords.shape[0]
+    fixed = tpufem_torch.meshgen.boundary_nodes(coords, 2, 0.0)
+    b = np.zeros((N, 3))
+    b[tpufem_torch.meshgen.boundary_nodes(coords, 2, 2.0), 0] = 1e3
+    out = {}
+    for i, dev in enumerate((cuda_device, torch.device("cpu"))):
+        op = tpufem_torch.PackedPartialOperator.build(
+            coords, conn, "c3d10", E, NU, n_nodes=N, dtype=torch.float64,
+            device=dev)
+        system = tpufem_torch.PackedSystem(op, fixed_nodes=fixed)
+        bX = system.pc.project_residual(op.plan.pack(torch.as_tensor(
+            b, device=dev)))
+        kw = dict(constraints=system.pc, M_inv=system.M_inv,
+                  tol=1e-11 * float(torch.linalg.norm(bX)))
+        path = str(tmp_path / f"state_{i}")
+        u1, i1, d1 = checkpoint.checkpointed_cg(op, bX, path, every=25,
+                                                total_iter=50, **kw)
+        assert d1 == 50 and int(i1.status) == MAX_ITER
+        out[i] = u1.cpu()
+        if i == 0:
+            u2, i2, d2 = checkpoint.checkpointed_cg(op, bX, path, every=100,
+                                                    total_iter=5000, **kw)
+            assert int(i2.status) == CONVERGED and d2 > d1
+            u_ref, _ = tpufem_torch.cg(op, bX, max_iter=5000, **kw)
+            rel = float((u2 - u_ref).abs().max() / u_ref.abs().max())
+            assert rel <= 1e-8, rel
+    np.testing.assert_allclose(out[0].numpy(), out[1].numpy(), rtol=0,
+                               atol=1e-9 * float(out[1].abs().max()))
+
+
 @pytest.mark.cuda
 def test_graph_capture_failure_raises(cuda_device):
     """A block that reads a value on the host cannot be captured: the

@@ -165,6 +165,14 @@ _ALL_MODULES = [
     "tpufem_torch.parallel.partition", "tpufem_torch.ops.assembly",
     "tpufem_torch.solvers.hybrid", "tpufem_torch.scripts.bench_hybrid",
     "tpufem_torch.examples.hybrid_subdomain",
+    "tpufem_torch.io", "tpufem_torch.io.vtk", "tpufem_torch.io.h5",
+    "tpufem_torch.viz", "tpufem_torch.viz.plot",
+    "tpufem_torch.utils.format", "tpufem_torch.utils.profiling",
+    "tpufem_torch.utils.checkpoint", "tpufem_torch.workloads",
+    "tpufem_torch.workloads.simjeb",
+    "tpufem_torch.examples.static_cantilever",
+    "tpufem_torch.examples.simjeb_workload",
+    "tpufem_torch.examples.packed_solve",
 ]
 
 

@@ -40,7 +40,15 @@ kernels:
   (ops.probe_reshape; kernels relayout_fwd, relayout_inv), indexed row
   reads against a gather (ops.probe_rowdma; kernel row_accumulate) and
   the planar element layout's write and read (ops.probe_planar_io;
-  kernels planar_write, planar_read).
+  kernels planar_write, planar_read);
+* the reference's end-to-end SimJEB workload (workloads.simjeb:
+  synthesize_simjeb_bundle, run_simjeb_workload on kernels fused_yc,
+  combine and compress_gather) with the host tools it runs on: VTK and
+  SimJEB h5 I/O (io.vtk as vtk_io, io.h5 as h5_io), the plotly viewers
+  (viz.plot), utils.format, utils.profiling (timers, roofline counters,
+  torch.profiler traces) and utils.checkpoint (npz state,
+  checkpointed_cg); and the examples static_cantilever, simjeb_workload
+  and packed_solve (its one-card half).
 
 Every PCG and BiCGStab solve runs its loop in 32-iteration blocks, and
 GMRES each restart cycle, that the card replays as CUDA graphs
@@ -49,9 +57,9 @@ solvers.gmres.GMRESCycle).
 
 The JAX package ``tpufem`` stays the reference; nothing here imports it.
 Entry points (the plans' and operators' build functions, PackedSystem,
-RefinedSystem, static_structure_solver) run on the CUDA card unless the
-caller passes ``device="cpu"``, which runs every kernel's plain PyTorch
-version instead.
+RefinedSystem, static_structure_solver, the workload) run on the CUDA
+card unless the caller passes ``device="cpu"``, which runs every kernel's
+plain PyTorch version instead.
 
 TF32 is off: float32 matrix products (the Jacobian einsums, the element
 GEMV) and cuDNN convolutions run in full float32, the analogue of
@@ -63,6 +71,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .core.device import resolve_device  # noqa: E402
+from .core.dtypes import enable_x64  # noqa: E402
+from .core.voigt import stress_tensor, stress_vector, von_mises  # noqa: E402
 from .core.materials import (elasticity_matrix,  # noqa: E402
                              kirchhoff_D_matrix, lame_parameters)
 from .elements import dispatch, shell, solid  # noqa: E402
@@ -118,6 +128,11 @@ from .topology import diagnostics as topo_diagnostics  # noqa: E402
 from .topology import edges as topo_edges  # noqa: E402
 from .topology import faces as topo_faces  # noqa: E402
 from .utils import meshgen  # noqa: E402
+from .io import h5 as h5_io  # noqa: E402
+from .io import vtk as vtk_io  # noqa: E402
+from .utils.format import human_readable_number  # noqa: E402
+from .workloads import (run_simjeb_workload,  # noqa: E402
+                        synthesize_simjeb_bundle)
 
 # the CUDA kernels of the refined packed solve, in the order of the apply
 PACKED_KERNELS = (FUSED_YC, COMBINE, COMPRESS_GATHER)
@@ -151,14 +166,17 @@ __all__ = [
     "cluster_expand", "cluster_spmv", "combine", "comp_vdot",
     "compress_gather", "compress_planar", "cuda",
     "diagonal_preconditioner", "dispatch", "elasticity_matrix",
-    "element_table", "expand", "expand_planar", "fused_yc", "gmres",
-    "hybrid_solve", "invert_block_planes", "kirchhoff_D_matrix",
-    "lame_parameters", "legacy", "local_frames", "lumped_mass_diagonal",
-    "masked_cg", "meshgen", "modal", "modal_solver", "naive_modal_solver",
+    "element_table", "enable_x64", "expand", "expand_planar", "fused_yc",
+    "gmres", "h5_io", "human_readable_number", "hybrid_solve",
+    "invert_block_planes", "kirchhoff_D_matrix", "lame_parameters",
+    "legacy", "local_frames", "lumped_mass_diagonal", "masked_cg",
+    "meshgen", "modal", "modal_solver", "naive_modal_solver",
     "newton_raphson", "nodal_forces", "partition", "planar_read",
     "planar_write", "probe_fused", "relayout_fwd", "relayout_inv",
-    "resolve_device", "row_accumulate", "shell", "shell_nodal_forces",
-    "shell_postprocess_values", "shell_stiffness", "shell_stress", "solid",
-    "static_structure_solver", "stiffness_fused", "to_scipy",
-    "topo_convert", "topo_diagnostics", "topo_edges", "topo_faces",
+    "resolve_device", "row_accumulate", "run_simjeb_workload", "shell",
+    "shell_nodal_forces", "shell_postprocess_values", "shell_stiffness",
+    "shell_stress", "solid", "static_structure_solver", "stiffness_fused",
+    "stress_tensor", "stress_vector", "synthesize_simjeb_bundle",
+    "to_scipy", "topo_convert", "topo_diagnostics", "topo_edges",
+    "topo_faces", "von_mises", "vtk_io",
 ]

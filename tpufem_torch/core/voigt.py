@@ -1,5 +1,5 @@
-"""Voigt vector -> tensor conversion and the von Mises invariant (torch,
-batched); the part of tpufem/core/voigt.py that stress recovery uses.
+"""Voigt vector <-> tensor conversion and the von Mises invariant (torch,
+batched); the port of tpufem/core/voigt.py.
 
 Layout: index 3 -> (0,1)=xy, index 4 -> (1,2)=yz, index 5 -> (0,2)=zx.
 """
@@ -15,6 +15,14 @@ def stress_tensor(stress_vector: torch.Tensor) -> torch.Tensor:
     row1 = torch.stack([s[..., 3], s[..., 1], s[..., 4]], dim=-1)
     row2 = torch.stack([s[..., 5], s[..., 4], s[..., 2]], dim=-1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def stress_vector(stress_tensor: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] symmetric tensor -> [..., 6] Voigt (xx, yy, zz, xy, yz,
+    xz)."""
+    t = stress_tensor
+    return torch.stack([t[..., 0, 0], t[..., 1, 1], t[..., 2, 2],
+                        t[..., 0, 1], t[..., 1, 2], t[..., 0, 2]], dim=-1)
 
 
 def von_mises(stress: torch.Tensor) -> torch.Tensor:

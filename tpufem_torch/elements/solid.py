@@ -158,18 +158,23 @@ def _packed_B_and_W(coords, conn, table, dtype):
 
 def stiffness(coords, conn, etype: str, E: float, nu: float,
               rule: str = "default", table: Optional[ElementTable] = None,
-              dtype=None) -> torch.Tensor:
+              dtype=None, fused: Optional[bool] = None) -> torch.Tensor:
     """Element stiffness K[M, 3k, 3k], isotropic.
 
-    A k <= 10 type with its default rule and no custom table goes to the
-    fused stiffness kernel (ops.stiffness_kernels.stiffness_fused: the
-    CUDA kernel on a CUDA tensor, its plain version on a CPU tensor), as
-    tpufem routes it to its Pallas kernel; everything else to the
-    B^T D B pipeline."""
-    if (rule == "default" and table is None
-            and element_table(etype, rule).dN.shape[1] <= 10):
+    fused=None: a k <= 10 type with its default rule and no custom table
+    goes to the fused stiffness kernel (ops.stiffness_kernels.
+    stiffness_fused: the CUDA kernel on a CUDA tensor, its plain version
+    on a CPU tensor), as tpufem routes it to its Pallas kernel on the TPU;
+    everything else to the B^T D B pipeline.  fused=True forces the fused
+    kernel (which raises for a (k, q) it is not built for; a custom table
+    is then not used, as in tpufem), fused=False the B^T D B pipeline."""
+    if fused is None:
+        fused = (rule == "default" and table is None
+                 and element_table(etype, rule).dN.shape[1] <= 10)
+    if fused:
         from ..ops.stiffness_kernels import stiffness_fused
-        return stiffness_fused(coords, conn, etype, E, nu, dtype=dtype)
+        return stiffness_fused(coords, conn, etype, E, nu, rule=rule,
+                               dtype=dtype)
     return stiffness_bmat(coords, conn, etype, elasticity_matrix(E, nu),
                           rule=rule, table=table, dtype=dtype)
 

@@ -103,6 +103,9 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.block_windows_count.restype = None
     lib.block_windows_count.argtypes = [i32p, ctypes.c_int64,
                                         ctypes.c_int64, i32p]
+    lib.block_windows_fill.restype = None
+    lib.block_windows_fill.argtypes = [i32p, ctypes.c_int64, ctypes.c_int64,
+                                       ctypes.c_int32, i32p, i32p, i32p]
     lib.block_windows_fill_packed.restype = None
     lib.block_windows_fill_packed.argtypes = [
         i32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
@@ -339,6 +342,28 @@ def block_windows_count(l2g: np.ndarray, nb: int) -> Optional[np.ndarray]:
     lib.block_windows_count(_p(l2g, ctypes.c_int32), l2g.shape[0], nb,
                             _p(wc_cnt, ctypes.c_int32))
     return wc_cnt
+
+
+def block_windows(l2g: np.ndarray, nb: int):
+    """(winc [nb, Wc] pad B, slotidx [nb, Wc, 128] pad -1, wc_cnt [nb])
+    or None.  Deterministic: clusters ascending per block."""
+    lib = _load()
+    if lib is None:
+        return None
+    l2g = np.ascontiguousarray(l2g, dtype=np.int32)
+    B = l2g.shape[0]
+    wc_cnt = np.empty(nb, np.int32)
+    lib.block_windows_count(_p(l2g, ctypes.c_int32), B, nb,
+                            _p(wc_cnt, ctypes.c_int32))
+    wc = max(1, int(wc_cnt.max()) if nb else 1)
+    cursor = np.zeros(nb, np.int32)
+    winc = np.empty((nb, wc), np.int32)
+    slotidx = np.empty((nb, wc, 128), np.int32)
+    lib.block_windows_fill(_p(l2g, ctypes.c_int32), B, nb, wc,
+                           _p(cursor, ctypes.c_int32),
+                           _p(winc, ctypes.c_int32),
+                           _p(slotidx, ctypes.c_int32))
+    return winc, slotidx, wc_cnt
 
 
 def block_windows_fill_packed(l2g: np.ndarray, nb: int, wc: int,

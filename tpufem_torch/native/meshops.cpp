@@ -514,6 +514,31 @@ void block_windows_fill_packed(const int32_t* l2g, int64_t B, int64_t nb,
   }
 }
 
+// Unpacked block-window fill (wc = max count known): winc [nb, wc] (pad
+// B) and slotidx [nb, wc, 128] (pad -1), clusters ascending per block.
+void block_windows_fill(const int32_t* l2g, int64_t B, int64_t nb,
+                        int32_t wc, int32_t* cursor /* [nb] zeroed */,
+                        int32_t* winc_out, int32_t* slotidx_out) {
+  for (int64_t i = 0; i < nb * (int64_t)wc; ++i) winc_out[i] = (int32_t)B;
+  for (int64_t i = 0; i < nb * (int64_t)wc * 128; ++i) slotidx_out[i] = -1;
+  for (int64_t b = 0; b < B; ++b) {
+    const int32_t* g = l2g + b * 128;
+    int32_t cur = -1;
+    int64_t pos = -1;
+    for (int s = 0; s < 128; ++s) {
+      if (g[s] < 0) continue;
+      int32_t blk = g[s] >> 7;
+      if (blk != cur) {
+        cur = blk;
+        pos = cursor[blk]++;
+        winc_out[blk * (int64_t)wc + pos] = (int32_t)b;
+      }
+      slotidx_out[(blk * (int64_t)wc + pos) * 128 + (g[s] & 127)] =
+          (int32_t)s;
+    }
+  }
+}
+
 // Byte-packed incidence fill for one bucket of clusters: for every lane r
 // (ascending — deterministic within-slot order) of cluster cluster_ids[ci]
 // whose element is real, append lane%128 + 1 into the slot's list at
