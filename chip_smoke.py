@@ -5,18 +5,20 @@ solve, the staged packed pipeline under the block-Jacobi refined solve,
 the relayout, row-read and planar-I/O probes, the converged refined solve
 at tpufem's largest size, the rest of the solver family with the mixed
 solid + shell driver, Schur substructuring at BASELINE config 4 with
-the remaining operators, and the reference's end-to-end SimJEB workload
-with the io, profiling and checkpoint tools and the examples.  Every PCG
+the remaining operators, the reference's end-to-end SimJEB workload
+with the io, profiling and checkpoint tools and the examples, and the
+four distributed systems on a part mesh (the packed halo system at
+box_tet10(95) in four parts).  Every PCG
 and BiCGStab solve runs its 32-iteration blocks, and GMRES each restart
 cycle, as CUDA graphs.
 
     python3 chip_smoke.py            # box_tet10(55): 1.00M elements, 4.1M
                                      # DOF; phase 11 at box_tet10(119)
     python3 chip_smoke.py --n 10 --scale-n 20 --mixed-n 8 --plate-n 16 \
-        --hybrid-n 12 --hybrid-parts 32 --bsr-n 6 --workload-n 10
-                                     # a quick check
+        --hybrid-n 12 --hybrid-parts 32 --bsr-n 6 --workload-n 10 \
+        --dist-n 20                  # a quick check
     python3 chip_smoke.py --phases staged   # some paths (packed, static,
-                    # staged, probes, scale, family, hybrid, workload)
+                    # staged, probes, scale, family, hybrid, workload, dist)
     python3 chip_smoke.py --phases turns    # K6, K5b and K3 alone (run
                         # from copies of two trees in turns to compare them)
 
@@ -252,6 +254,45 @@ printed):
        examples (static_cantilever, simjeb_workload, packed_solve) at
        their defaults, failing on NAN_INF (NOT_SPD too for the first
        two) and unless static_cantilever launched K6.
+  The four distributed systems of tpufem_torch.parallel on a part mesh
+  (phase 15, dist; E = 200e9, nu = 0.3, z = 0 fixed, -1e3 in z on the top
+  face; K4, K3, K2 and K6 counted over the distributed systems' builds,
+  applies and solves, the kernel comparisons and the single-card
+  references not counted):
+  15a. box_tet10(--dist-n, default 95: 5,144,250 c3d10, 6,967,871 nodes),
+       f32, PackedHaloFEM on PartMesh(--dist-parts, default 4) with block
+       Jacobi, over one window_buckets=0 plan: the setup stages (mesh,
+       plan, partition tables, geometry, block diagonal), Bp, Nbp, Gx, Gc,
+       the X and Yc rounds, interior_cut against Bp, the ghost bytes an
+       apply, the single-card staged apply's rate and
+       scripts/dist_cost_model's row for the part count at that rate
+       (fails unless its ghost rows are Gx and Gc); K4, K3, K2 on part 0's
+       remapped tables bitwise against their plain versions; the part-mesh
+       apply against PackedPartialOperator(fuse="") on the same plan
+       (the largest relative difference; fails above 1e-6); a 200-
+       iteration PCG window (tol 1e-30) as CUDA graphs beside the same
+       window of the single-card staged PackedSystem (fails unless the
+       first 20 history entries agree within 1e-5; the largest difference
+       over the 200 and both ms per iteration printed);
+  15b. box_tet10(--n), f64, PackedHaloFEM on PartMesh(4), scalar Jacobi,
+       tol 1e-6 ||b||: fails unless CONVERGED, within 1% of the
+       single-card f64 PackedSystem's iterations and 1e-8 of its
+       displacement, with an F64Operator true relative residual <= 1e-6;
+       then (last in the phase, after every capture) a GroupMesh on one
+       NCCL rank (a FileStore in a temporary directory): 64 iterations
+       bitwise PartMesh(1)'s;
+  15c. DistFEM and HaloFEM on the same mesh, f64, 4 parts by
+       partition_elements, K by K6, scalar Jacobi, the same tolerance:
+       fails unless both CONVERGED within 1% of 15b's count and within
+       1e-8 of each other; their ms per iteration and rows exchanged an
+       apply;
+  15d. HaloPartialFEM, f64, part_shape (2, 2) by hierarchical_partition:
+       fails unless its rounds are partial permutations with the
+       cross-host rounds first, its geometry <= 160 B an element, and a
+       100-iteration window within 1e-8 of 15b's (partial assembly too)
+       and within 1e-12 of DistFEM's first 20 history entries (K6's
+       element stiffness: the difference grows past 1e-8 by iteration
+       100, printed).
   With --phases turns (not in the default): the timings of 8d (K6) and
   9d (K5b in turns with K3), by the same helpers, on box_tet10(n) alone.
   For before/after figures, copy this
@@ -265,7 +306,8 @@ family_launches and family_replayed, phase 12's; K1-K3, K6, K7a and K7b
 add hybrid_launches and hybrid_replayed, phase 13's; K1-K3 add
 workload_launches, run A's by torch.profiler, and workload_run_b_launches,
 run B's by the wrappers' counts, and K6 workload_launches, the
-static_cantilever example's), the card's name and power limit, and, last,
+static_cantilever example's; K2, K3, K4 and K6 add dist_launches and
+dist_replayed, phase 15's), the card's name and power limit, and, last,
 {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -3148,6 +3190,410 @@ def workload_phase(args, dev):
     return launches, countsB
 
 
+DIST_N = 95                        # phase 15a: box_tet10(95), 5.14M c3d10
+DIST_PARTS = 4
+DIST_WINDOW = 200                  # 15a's PCG window (iterations)
+
+
+def dist_phase(args, dev):
+    """The four distributed systems of tpufem_torch.parallel on a part mesh
+    (phase 15 of the module docstring).  Returns the launches of K4, K3,
+    K2 and K6 over the phase's distributed systems (their builds, applies
+    and solves; the kernel comparisons and the single-card references are
+    not counted), and those of them by graph replays."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch.distributed as tdist
+
+    import tpufem_torch as tt
+    from tpufem_torch.ops import packed_kernels as pk
+    from tpufem_torch.parallel import dist as pdist
+    from tpufem_torch.parallel.halo import build_halo_fem
+    from tpufem_torch.parallel.halo_partial import build_halo_partial_fem
+    from tpufem_torch.parallel.packed_dist import build_packed_halo_fem
+    from tpufem_torch.parallel.partition import partition_elements
+    from tpufem_torch.scripts import dist_cost_model
+    from tpufem_torch.solvers.cg import CONVERGED
+
+    f32, f64 = torch.float32, torch.float64
+    mg = tt.meshgen
+    watched = (tt.EXPAND, tt.COMPRESS_GATHER, tt.COMBINE, tt.STIFFNESS_FUSED)
+    totals = {K.name: [0, 0] for K in watched}
+
+    def zero():
+        torch.cuda.synchronize()
+        for K in tt.KERNELS:
+            K.launches = K.replayed = 0
+
+    def read(label):
+        """Adds the launches since zero() to the phase's totals."""
+        torch.cuda.synchronize()
+        out = {K.name: (K.launches, K.replayed) for K in watched}
+        for name, (n, r) in out.items():
+            totals[name][0] += n
+            totals[name][1] += r
+        log(f"dist {label} launches: " + ", ".join(
+            f"{k} {n} ({r} by graph replays)" for k, (n, r) in out.items()))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def rel(a, b) -> float:
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        return float((a - b).abs().max() / b.abs().max())
+
+    def box(n):
+        (coords, conn), t = timed(lambda: mg.box_tet10(n, n, n))
+        N = coords.shape[0]
+        fixed = mg.boundary_nodes(coords, 2, 0.0)
+        b = np.zeros((N, 3))
+        b[mg.boundary_nodes(coords, 2, float(coords[:, 2].max())), 2] = -1e3
+        return coords, conn, fixed, b, t
+
+    def stages(tm):
+        return ", ".join(f"{k} {v:.2f} s" for k, v in tm.items())
+
+    log(f"dist: device memory at the phase's start "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved")
+
+    # -- 15a: the packed halo system at full width ---------------------------
+    n, P = args.dist_n, args.dist_parts
+    coords, conn, fixed, b, t_mesh = box(n)
+    N, M = coords.shape[0], conn.shape[0]
+    plan, t_plan = timed(lambda: tt.PackedPlan.build(
+        coords, conn, N, window_buckets=0, device="cpu"))
+    tm = {"mesh": t_mesh, "plan": t_plan}
+    zero()
+    fem, part = build_packed_halo_fem(
+        coords, conn, "c3d10", E, NU, mesh=pdist.PartMesh(P, device=dev),
+        fixed_nodes=fixed, dtype=f32, precondition="block", plan=plan,
+        timings=tm)
+    tm["system"] = tm.pop("preconditioner")
+    read("15a system (block diagonal)")
+    m = part.meta
+    log(f"dist 15a: box_tet10({n}) {M} c3d10 elements, {N} nodes, f32, "
+        f"PartMesh({P}) on the card, block Jacobi; setup {stages(tm)} "
+        f"(system: the mask and the block diagonal)")
+    x_rows = int(part.xmask.sum())
+    c_rows = int(part.cmask.sum())
+    log(f"dist 15a partition: Bp {m.Bp} clusters and Nbp {m.Nbp} blocks a "
+        f"part; Gx {m.Gx}, Gc {m.Gc}; X rounds {m.x_rounds}; Yc rounds "
+        f"{m.c_rounds}; interior_cut {m.interior_cut} of Bp {m.Bp} "
+        f"({m.interior_cut / m.Bp:.3f}); ghost rows an apply: {x_rows} X + "
+        f"{c_rows} Yc = {(x_rows + c_rows) * 1536 / 1e6:.3f} MB over all "
+        f"parts, at most {(m.Gx + m.Gc) * 1536 / 1e6:.3f} MB into one part")
+
+    # the single-card staged operator on the same window_buckets=0 plan:
+    # with its own geometry, and with the partition's (the same values in
+    # the plan's order; chunked_geometry's chunks split the two element
+    # orders at other places)
+    (op_own, t_op1) = timed(lambda: tt.PackedPartialOperator.build(
+        coords, conn, "c3d10", E, NU, plan=plan, fuse="", dtype=f32,
+        device=dev))
+    Jg, Wg = part.plan_geometry(plan.meta.n_clusters)
+    r_geo = max(rel(Jg, op_own.Jinv), rel(Wg, op_own.W))
+    op1 = tt.PackedPartialOperator(op_own.plan, Jg, Wg, op_own.dN,
+                                   *op_own.lam_mu, fuse="")
+    log(f"dist 15a geometry: the partition's against the single-card "
+        f"operator's own, max rel difference {r_geo:.3e} (bitwise "
+        f"{torch.equal(Jg, op_own.Jinv) and torch.equal(Wg, op_own.W)})")
+    rng = np.random.default_rng(args.seed)
+    u = rng.standard_normal((N, 3)).astype(np.float32)
+    X1 = op1.plan.pack(torch.as_tensor(u, device=dev))
+    single_ms = statistics.median(
+        timed(lambda: op1(X1))[1] for _ in range(7)) * 1e3
+    rate = M * 900 / (single_ms * 1e-3)
+    log(f"dist 15a single-card staged apply (PackedPartialOperator fuse='', "
+        f"same plan; built in {t_op1:.2f} s): {single_ms:.3f} ms host "
+        f"clock (median of 7), {rate / 1e9:.2f} Gnnz/s")
+    row = dist_cost_model.cost_rows(plan, M, 10, (P,), rate=rate)[0]
+    log(f"dist 15a cost model (scripts/dist_cost_model, this rate, "
+        f"{dist_cost_model.LINK_BYTES_PER_S / 1e9:.0f} GB/s NVLink 4 "
+        f"specification): {json.dumps(row)}")
+    if (max(1, row["ghost_x_rows_max"]), max(1, row["ghost_yc_rows_max"])) \
+            != (m.Gx, m.Gc):
+        fail(f"dist 15a: the cost model's ghost rows "
+             f"({row['ghost_x_rows_max']}, {row['ghost_yc_rows_max']}) are "
+             f"not the partition's Gx, Gc ({m.Gx}, {m.Gc})")
+
+    # K4, K3, K2 on part 0's remapped tables against their plain versions
+    def rand(*shape):
+        return torch.randn(shape, dtype=f32, device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(7))
+
+    Xe = rand(m.Nbp + m.Gx + 1, 384)
+    Xe[-1] = 0.0
+    a4 = (Xe, fem.win_nodes[0], fem.wslot[0], fem.jslot[0], fem.lconn[0])
+    fe = rand(m.Bp, 3, m.lanes)
+    Ye = rand(m.Bp + m.Gc + 1, 384)
+    Ye[-1] = 0.0
+    a2 = (Ye, fem.winc[0], fem.slotidx[0], fem.wk[0])
+    same = {
+        "expand": torch.equal(pk.expand(*a4, wk=m.win_n),
+                              pk.expand_plain(*a4, wk=m.win_n)),
+        "compress_gather": torch.equal(
+            pk.compress_gather(fe, fem.cinc[0], m.v_widths),
+            pk.compress_gather_plain(fe, fem.cinc[0], m.v_widths)),
+        "combine": torch.equal(pk.combine(*a2), pk.combine_plain(*a2))}
+    log(f"dist 15a kernels on part 0's remapped tables, bitwise their "
+        f"plain versions: {same}")
+    if not all(same.values()):
+        fail(f"dist 15a: a kernel differs from its plain version on the "
+             f"remapped tables: {same}")
+    del Xe, fe, Ye, a4, a2
+
+    # the part-mesh apply against the single-card staged apply
+    zero()
+    Xd = torch.as_tensor(part.pack_np(u), device=dev)
+    F = torch.as_tensor(part.unpack_np(fem.spmv(Xd)))
+    dist_ms = statistics.median(
+        timed(lambda: fem.spmv(Xd))[1] for _ in range(7)) * 1e3
+    read("15a applies")
+    F1 = op1.plan.unpack(op1(X1)).cpu()
+    r_apply = rel(F, F1)
+    r_own = rel(F, op_own.plan.unpack(op_own(X1)).cpu())
+    log(f"dist 15a apply: PartMesh({P}) against the single-card staged "
+        f"apply on the same geometry: bitwise {torch.equal(F, F1)}, max "
+        f"rel difference {r_apply:.3e} (gate 1e-6); against the operator's "
+        f"own geometry {r_own:.3e}; {dist_ms:.3f} ms host clock an apply "
+        f"(median of 7), single card {single_ms:.3f}")
+    if not r_apply <= 1e-6:
+        fail(f"dist 15a: the part-mesh apply differs from the single-card "
+             f"one by {r_apply:.3e}")
+    del F, F1, X1, Xd, op_own, Jg, Wg
+
+    # the 200-iteration PCG windows (tol 1e-30), both as CUDA graphs
+    bX = part.pack_np(b.astype(np.float32))
+    zero()
+    _, t_cap = timed(lambda: fem.warm(bX, tol=1e-30, max_iter=DIST_WINDOW))
+    (uD, iD), t_d = timed(lambda: fem.pcg(bX, tol=1e-30,
+                                          max_iter=DIST_WINDOW))
+    read("15a PCG window")
+    sys1 = tt.PackedSystem(op1, fixed_nodes=fixed, precondition="block")
+    _, t_cap1 = timed(lambda: sys1.warm(tol=1e-30, max_iter=DIST_WINDOW))
+    (u1, i1), t_1 = timed(lambda: sys1.solve(b, tol=1e-30,
+                                             max_iter=DIST_WINDOW))
+    hD = iD.history[:DIST_WINDOW + 1].cpu()
+    h1 = i1.history[:DIST_WINDOW + 1].cpu()
+    rh = (hD - h1).abs() / h1.abs()
+    r20, r200 = float(rh[:21].max()), float(rh.max())
+    log(f"dist 15a PCG window ({DIST_WINDOW} iterations, tol 1e-30, CUDA "
+        f"graphs): PartMesh({P}) {t_d / DIST_WINDOW * 1e3:.3f} ms an "
+        f"iteration (capture {t_cap:.2f} s), single-card staged "
+        f"PackedSystem {t_1 / DIST_WINDOW * 1e3:.3f} ms (capture "
+        f"{t_cap1:.2f} s); history max rel difference {r20:.3e} over the "
+        f"first 20 (gate 1e-5), {r200:.3e} over the {DIST_WINDOW}; "
+        f"||r|| {float(hD[0]):.4e} -> {float(hD[-1]):.4e} (single card "
+        f"{float(h1[-1]):.4e})")
+    if int(iD.iterations) != DIST_WINDOW or not r20 <= 1e-5:
+        fail(f"dist 15a: the PCG window differs from the single card's "
+             f"({int(iD.iterations)} iterations, {r20:.3e})")
+    del fem, part, op1, sys1, plan, uD, u1, bX
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 15b: the packed halo system converged, f64, at --n ------------------
+    n2 = args.n
+    coords, conn, fixed, b, t_mesh = box(n2)
+    N, M = coords.shape[0], conn.shape[0]
+    tol = 1e-6 * float(np.linalg.norm(b))
+    plan, t_plan = timed(lambda: tt.PackedPlan.build(
+        coords, conn, N, window_buckets=0, device="cpu"))
+    tm = {"mesh": t_mesh, "plan": t_plan}
+    zero()
+    fem, part = build_packed_halo_fem(
+        coords, conn, "c3d10", E, NU, mesh=pdist.PartMesh(4, device=dev),
+        fixed_nodes=fixed, dtype=f64, precondition="jacobi", plan=plan,
+        timings=tm)
+    bX = part.pack_np(b)
+    (uX, iB), t_b = timed(lambda: fem.pcg(bX, tol=tol, max_iter=20000))
+    read("15b solve")
+    uB = torch.as_tensor(part.unpack_np(uX))
+    itB = int(iB.iterations)
+    hist_b = iB.history[:101].cpu()
+    del fem, uX
+    gc.collect()
+    torch.cuda.empty_cache()
+    op64 = tt.PackedPartialOperator.build(coords, conn, "c3d10", E, NU,
+                                          n_nodes=N, dtype=f64, device=dev)
+    sys64 = tt.PackedSystem(op64, fixed_nodes=fixed, precondition="jacobi")
+    (u1, i1), t_1 = timed(lambda: sys64.solve(b, tol=tol, max_iter=20000))
+    it1 = int(i1.iterations)
+    u1 = u1.cpu()
+    del sys64, op64
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref64 = tt.F64Operator(coords, conn, "c3d10", E, NU, geometry_dtype=f64,
+                           device=dev)
+    m3 = torch.ones((N, 3), dtype=f64, device=dev)
+    m3[torch.as_tensor(fixed, device=dev).long()] = 0.0
+    b_t = torch.as_tensor(b, device=dev) * m3
+    r = (b_t - ref64(uB.to(dev).reshape(-1)).reshape(N, 3)) * m3
+    true_rel = float(torch.linalg.norm(r) / torch.linalg.norm(b_t))
+    del ref64, r
+    r_u = rel(uB, u1)
+    log(f"dist 15b: box_tet10({n2}) {M} c3d10, f64, PartMesh(4), scalar "
+        f"Jacobi, tol 1e-6 ||b||; setup {stages(tm)}; status "
+        f"{int(iB.status)}, {itB} iterations in {t_b:.2f} s "
+        f"({t_b / max(itB, 1) * 1e3:.3f} ms each); single-card f64 "
+        f"PackedSystem {int(i1.status)}, {it1} iterations in {t_1:.2f} s; "
+        f"displacement {r_u:.3e} from it (gate 1e-8); F64Operator true rel "
+        f"residual {true_rel:.3e} (gate 1e-6)")
+    if not (int(iB.status) == int(i1.status) == CONVERGED
+            and abs(itB - it1) <= 0.01 * it1 and r_u <= 1e-8
+            and true_rel <= 1e-6):
+        fail("dist 15b: the part-mesh solve misses a gate")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 15c: DistFEM and HaloFEM, f64, 4 parts, K by K6 ---------------------
+    labels, _ = partition_elements(conn, "c3d10", 4, args.seed)
+    sols, hist_d = {}, None
+    for name, build in (("DistFEM", pdist.build_distributed_fem),
+                        ("HaloFEM", build_halo_fem)):
+        zero()
+        (fem, part), t_s = timed(lambda: build(
+            coords, conn, "c3d10", E, NU, mesh=pdist.PartMesh(4, device=dev),
+            fixed_nodes=fixed, labels=labels, dtype=f64))
+        bn = part.to_new(torch.as_tensor(b, device=dev))
+        (u_n, info), t_c = timed(lambda: fem.pcg(bn, tol=tol,
+                                                 max_iter=20000))
+        read(f"15c {name}")
+        it = int(info.iterations)
+        pm = part.meta
+        if name == "DistFEM":
+            moved = f"2 x {pm.n_parts * pm.block_rows} rows (all-gather)"
+            hist_d = info.history[:101].cpu()
+        else:
+            valid = 2 * int(part.recv_mask.sum())
+            moved = (f"2 x {len(pm.rounds)} rounds x {pm.halo_width} x "
+                     f"{pm.n_parts} = {2 * len(pm.rounds) * pm.halo_width * pm.n_parts} "
+                     f"rows padded, {valid} real (halo)")
+        sols[name] = part.to_old(u_n).cpu()
+        log(f"dist 15c {name}: build {t_s:.2f} s (K6 f64, the partition), "
+            f"status {int(info.status)}, {it} iterations in {t_c:.2f} s "
+            f"({t_c / max(it, 1) * 1e3:.3f} ms each); exchanged an apply: "
+            f"{moved}; displacement {rel(sols[name], uB):.3e} from 15b's")
+        if int(info.status) != CONVERGED or abs(it - itB) > 0.01 * itB:
+            fail(f"dist 15c {name}: status {int(info.status)}, {it} "
+                 f"iterations (15b: {itB})")
+        del fem, part, u_n, bn
+        gc.collect()
+    torch.cuda.empty_cache()
+    r_dh = rel(sols["HaloFEM"], sols["DistFEM"])
+    log(f"dist 15c: HaloFEM's displacement {r_dh:.3e} from DistFEM's "
+        f"(gate 1e-8)")
+    if not r_dh <= 1e-8:
+        fail(f"dist 15c: HaloFEM and DistFEM differ by {r_dh:.3e}")
+
+    # -- 15d: HaloPartialFEM, f64, part_shape (2, 2) -------------------------
+    from tpufem_torch.parallel.partition import hierarchical_partition
+    hlabels, t_hp = timed(lambda: hierarchical_partition(
+        conn, "c3d10", (2, 2), args.seed)[0])
+    zero()
+    (fem, part), t_s = timed(lambda: build_halo_partial_fem(
+        coords, conn, "c3d10", E, NU,
+        mesh=pdist.make_mesh_2d((2, 2), device=dev), part_shape=(2, 2),
+        labels=hlabels, fixed_nodes=fixed, dtype=f64))
+    pm = part.meta
+    kinds, perm_ok = [], True
+    for prs in pm.rounds:
+        srcs, dsts = [s for s, _ in prs], [d for _, d in prs]
+        perm_ok &= (len(set(srcs)) == len(srcs)
+                    and len(set(dsts)) == len(dsts))
+        kind = {s // 2 != d // 2 for s, d in prs}
+        perm_ok &= len(kind) == 1
+        kinds.append(kind.pop())
+    dcn_first = kinds == sorted(kinds, reverse=True)
+    geo_bytes = (pm.n_qj * 9 + pm.n_q) * 8
+    alloc = torch.cuda.memory_allocated(dev) / 1e9
+    reserved = torch.cuda.memory_reserved(dev) / 1e9
+    log(f"dist 15d: device memory before the window {alloc:.2f} GB "
+        f"allocated, {reserved:.2f} GB reserved")
+    bn = part.to_new(torch.as_tensor(b, device=dev))
+    (u_n, info), t_c = timed(lambda: fem.pcg(bn, tol=tol, max_iter=100))
+    read("15d window")
+    h = info.history[:101].cpu()
+
+    def hdiff(ref, upto):
+        return float(((h[:upto] - ref[:upto]).abs() / ref[:upto].abs())
+                     .max())
+
+    # DistFEM's operator is K6's element stiffness, 1.8e-14 from the
+    # partial-assembly action over the first 20 iterations; CG grows that
+    # ~1.28x an iteration after ~50 (2.5e-8 at 100 on the H100, PERF.md
+    # §6): the 100 entries are held against 15b's partial-assembly system
+    r_pk, r_d20, r_d100 = hdiff(hist_b, 101), hdiff(hist_d, 21), \
+        hdiff(hist_d, 101)
+    log(f"dist 15d HaloPartialFEM: hierarchical_partition {t_hp:.2f} s "
+        f"(host), build {t_s:.2f} s; rounds {pm.rounds} (partial "
+        f"permutations: {perm_ok}, cross-host first: {dcn_first}; "
+        f"{pm.dcn_pairs} cross-host pairs, {pm.dcn_halo_rows} rows); "
+        f"geometry {geo_bytes} B an element (gate 160); 100 iterations in "
+        f"{t_c:.2f} s ({t_c * 10:.3f} ms each, the capture included); "
+        f"history max rel difference {r_pk:.3e} from 15b's PackedHaloFEM "
+        f"over 100 (gate 1e-8), from DistFEM's {r_d20:.3e} over the first "
+        f"20 (gate 1e-12) and {r_d100:.3e} over 100")
+    if not (perm_ok and dcn_first and geo_bytes <= 160 and r_pk <= 1e-8
+            and r_d20 <= 1e-12 and int(info.iterations) == 100):
+        fail("dist 15d: HaloPartialFEM misses a gate")
+    del fem, part, u_n
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 15b, last: one NCCL rank, a GroupMesh window bitwise PartMesh(1)'s
+    # (after every capture of the phase, PartMesh(1)'s window first).
+    def window(mesh):
+        fem, part = build_packed_halo_fem(
+            coords, conn, "c3d10", E, NU, mesh=mesh, fixed_nodes=fixed,
+            dtype=f64, precondition="jacobi", plan=plan)
+        (uw, iw), t_w = timed(lambda: fem.pcg(part.pack_np(b), tol=0.0,
+                                              max_iter=64))
+        log(f"dist 15b window: {type(mesh).__name__} on one part, 64 "
+            f"iterations in {t_w:.2f} s")
+        return uw.cpu(), iw.history.cpu(), int(iw.iterations)
+
+    zero()
+    up, hp, ip = window(pdist.PartMesh(1, device=dev))
+    tmp = tempfile.mkdtemp()
+    try:
+        tdist.init_process_group(
+            "nccl", store=tdist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        ug, hg, ig = window(pdist.GroupMesh(device=dev))
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    read("15b windows")
+    same = torch.equal(ug, up) and torch.equal(hg, hp) and ig == ip == 64
+    log(f"dist 15b: the GroupMesh window (NCCL, one rank) bitwise "
+        f"PartMesh(1)'s: {same}")
+    if not same:
+        fail("dist 15b: the NCCL GroupMesh window differs from "
+             "PartMesh(1)'s")
+    del plan
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for name, (nl, nr) in totals.items():
+        if nl <= 0:
+            fail(f"dist: kernel {name} was not launched")
+        if name != tt.STIFFNESS_FUSED.name and nr <= 0:
+            fail(f"dist: kernel {name} was not launched by graph replays")
+    return ({k: v[0] for k, v in totals.items()},
+            {k: v[1] for k, v in totals.items()})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=55,
@@ -3156,9 +3602,9 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--phases",
                     default="packed,static,staged,probes,scale,family,"
-                    "hybrid,workload",
+                    "hybrid,workload,dist",
                     help="comma-separated subset of packed, static, staged, "
-                    "probes, scale, family, hybrid, workload, turns")
+                    "probes, scale, family, hybrid, workload, dist, turns")
     ap.add_argument("--scale-n", type=int, default=119,
                     help="phase 11's mesh: box_tet10(n, n, n)")
     ap.add_argument("--mixed-n", type=int, default=64,
@@ -3173,10 +3619,14 @@ def main() -> None:
                     help="phase 13c's BSR check: box_tet10(n, n, n)")
     ap.add_argument("--workload-n", type=int, default=WORKLOAD_N,
                     help="phase 14's bundle: box_tet10(n, n, 2 n)")
+    ap.add_argument("--dist-n", type=int, default=DIST_N,
+                    help="phase 15a's mesh: box_tet10(n, n, n)")
+    ap.add_argument("--dist-parts", type=int, default=DIST_PARTS,
+                    help="phase 15a's part count")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not phases <= {"packed", "static", "staged", "probes", "scale",
-                      "family", "hybrid", "workload", "turns"}:
+                      "family", "hybrid", "workload", "dist", "turns"}:
         ap.error(f"unknown phases {phases}")
 
     if not torch.cuda.is_available():
@@ -3282,6 +3732,15 @@ def main() -> None:
             if r["name"] in wl_b:
                 r["workload_run_b_launches"] = wl_b[r["name"]]
         log(f"phase workload: {time.perf_counter() - t0:.1f} s")
+    if "dist" in phases:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dl, dr = dist_phase(args, dev)
+        for r in rows:
+            if r["name"] in dl:
+                r["dist_launches"] = dl[r["name"]]
+                r["dist_replayed"] = dr[r["name"]]
+        log(f"phase dist: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

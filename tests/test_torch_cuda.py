@@ -1212,6 +1212,92 @@ def test_checkpointed_cg_on_card(cuda_device, tmp_path):
                                atol=1e-9 * float(out[1].abs().max()))
 
 
+@pytest.fixture(scope="module")
+def dist_part():
+    """A PackedDistPartition of box_tet10(6, 6, 12) in 4 parts, 16
+    elements a cluster (both exchanges run), f32, built on the CPU."""
+    from tpufem_torch.parallel.packed_dist import PackedDistPartition
+    coords, conn = tpufem_torch.meshgen.box_tet10(6, 6, 12)
+    part = PackedDistPartition.build(coords, conn, "c3d10", E, NU, 4,
+                                     dtype=torch.float32,
+                                     elems_per_cluster=16, device="cpu")
+    assert part.meta.x_rounds and part.meta.c_rounds
+    return part
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+def test_packed_dist_kernels_bitwise_vs_plain(cuda_device, dist_part, dt):
+    """expand, compress_gather and combine on each part's remapped tables
+    (local-ext rows, the scratch row, per-row combine widths) bitwise
+    against their plain versions, and a whole PartMesh apply through the
+    kernels bitwise against the same through the plain versions."""
+    from tpufem_torch.parallel.dist import PartMesh
+    from tpufem_torch.parallel.packed_dist import PackedHaloFEM
+    fem = PackedHaloFEM(PartMesh(4, device=cuda_device), "parts", dist_part)
+    m = dist_part.meta
+    rng = np.random.default_rng(21)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dt,
+                               device=cuda_device)
+
+    for l in range(4):
+        X = rand(m.Nbp + m.Gx + 1, 384)
+        X[-1] = 0.0
+        args = (X, fem.win_nodes[l], fem.wslot[l], fem.jslot[l],
+                fem.lconn[l])
+        assert torch.equal(tpk.expand(*args, wk=m.win_n),
+                           tpk.expand_plain(*args, wk=m.win_n))
+        fe = rand(m.Bp, 3, m.lanes)
+        assert torch.equal(
+            tpk.compress_gather(fe, fem.cinc[l], m.v_widths),
+            tpk.compress_gather_plain(fe, fem.cinc[l], m.v_widths))
+        Yc = rand(m.Bp + m.Gc + 1, 384)
+        Yc[-1] = 0.0
+        targs = (Yc, fem.winc[l], fem.slotidx[l], fem.wk[l])
+        assert torch.equal(tpk.combine(*targs), tpk.combine_plain(*targs))
+    if dt == torch.float32:
+        X = rand(4 * m.Nbp, 384)
+        launches = [K.launches for K in (tpk.EXPAND, tpk.COMPRESS_GATHER,
+                                          tpk.COMBINE)]
+        F = fem.spmv(X)
+        assert [K.launches - n for K, n in zip(
+            (tpk.EXPAND, tpk.COMPRESS_GATHER, tpk.COMBINE), launches)] \
+            == [4, 4, 4]
+        assert torch.equal(F, fem.spmv_with(X, tpk.expand_plain,
+                                            tpk.compress_gather_plain,
+                                            tpk.combine_plain))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_packed_dist_apply_on_card_matches_cpu(cuda_device, dist_part):
+    """A PartMesh(4) packed apply on the card (kernels, f32) against the
+    same on the CPU (plain versions), the same partition: within 1e-6
+    relative; and the block-Jacobi PCG's first 64 iterations as CUDA
+    graphs against the same blocks run eagerly, bitwise."""
+    from tpufem_torch.parallel.dist import PartMesh
+    from tpufem_torch.parallel.packed_dist import PackedHaloFEM
+    card = PackedHaloFEM(PartMesh(4, device=cuda_device), "parts", dist_part)
+    cpu = PackedHaloFEM(PartMesh(4, device="cpu"), "parts", dist_part)
+    X = torch.as_tensor(np.random.default_rng(22).standard_normal(
+        (4 * dist_part.meta.Nbp, 384)), dtype=torch.float32)
+    F_card = card.spmv(X.to(cuda_device)).cpu()
+    F_cpu = cpu.spmv(X)
+    rel = float((F_card - F_cpu).abs().max() / F_cpu.abs().max())
+    assert rel <= 1e-6, rel
+    card.M_inv = card.block_jacobi_preconditioner()
+    b = X.to(cuda_device)
+    u_g, i_g = card.pcg(b, tol=0.0, max_iter=64)
+    blk = next(iter(card._pcg.values()))
+    assert blk.graphed and blk.graphs
+    blk.graphed = False
+    u_e, i_e = card.pcg(b, tol=0.0, max_iter=64)
+    assert int(i_g.iterations) == int(i_e.iterations) == 64
+    assert torch.equal(u_g, u_e) and torch.equal(i_g.history, i_e.history)
+
+
 @pytest.mark.cuda
 def test_graph_capture_failure_raises(cuda_device):
     """A block that reads a value on the host cannot be captured: the

@@ -76,8 +76,12 @@ def test_simjeb_workload_example(capsys):
 
 def test_packed_solve_example(capsys):
     out = packed_solve.main(["2", "--device", "cpu"])
-    assert set(out) == {"jacobi", "block"}
+    assert set(out) == {"jacobi", "block", "distributed"}
     (ij, uj), (ib, ub) = out["jacobi"], out["block"]
-    assert int(ij.status) == int(ib.status) == 1
+    (idd, ud) = out["distributed"]
+    assert int(ij.status) == int(ib.status) == int(idd.status) == 1
     assert uj < 0 and abs(uj - ub) <= 1e-4 * abs(uj)
-    assert "jacobi : status=1" in capsys.readouterr().out
+    assert abs(ud - ub) <= 1e-4 * abs(ub)
+    text = capsys.readouterr().out
+    assert "jacobi : status=1" in text
+    assert "distributed (4 parts): status=1" in text

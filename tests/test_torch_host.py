@@ -173,6 +173,11 @@ _ALL_MODULES = [
     "tpufem_torch.examples.static_cantilever",
     "tpufem_torch.examples.simjeb_workload",
     "tpufem_torch.examples.packed_solve",
+    "tpufem_torch.parallel.dist", "tpufem_torch.parallel.halo",
+    "tpufem_torch.parallel.halo_partial",
+    "tpufem_torch.parallel.packed_dist",
+    "tpufem_torch.scripts.dist_cost_model",
+    "tpufem_torch.examples.distributed_solve",
 ]
 
 

@@ -48,7 +48,15 @@ kernels:
   (viz.plot), utils.format, utils.profiling (timers, roofline counters,
   torch.profiler traces) and utils.checkpoint (npz state,
   checkpointed_cg); and the examples static_cantilever, simjeb_workload
-  and packed_solve (its one-card half).
+  and packed_solve;
+* the four distributed systems of parallel/ (dist.DistFEM, halo.HaloFEM,
+  halo_partial.HaloPartialFEM, packed_dist.PackedHaloFEM: the last on
+  kernels expand, compress_gather and combine per part) on a part mesh:
+  PartMesh holds P parts as a leading axis on one device (every
+  collective a fixed-order tensor operation, the PCG blocks CUDA graphs),
+  GroupMesh one part per rank of a torch.distributed process group
+  (NCCL or gloo, eager), the two bitwise equal; the host cost model
+  scripts.dist_cost_model and the example distributed_solve.
 
 Every PCG and BiCGStab solve runs its loop in 32-iteration blocks, and
 GMRES each restart cycle, that the card replays as CUDA graphs
@@ -122,7 +130,10 @@ from .solvers.newton import newton_raphson  # noqa: E402
 from .solvers.refine import F64Operator, RefinedSystem, RefineInfo  # noqa: E402
 from .solvers.static import (StaticModel, build_static_model,  # noqa: E402
                              static_structure_solver)
-from .parallel import partition  # noqa: E402
+from .parallel import dist, partition  # noqa: E402
+from .parallel.dist import (DistFEM, DistPartition,  # noqa: E402
+                            GroupMesh, PartMesh, build_distributed_fem)
+from .parallel.halo import HaloFEM, HaloPartition, build_halo_fem  # noqa: E402
 from .topology import convert as topo_convert  # noqa: E402
 from .topology import diagnostics as topo_diagnostics  # noqa: E402
 from .topology import edges as topo_edges  # noqa: E402
@@ -151,21 +162,23 @@ __all__ = [
     "BSRMatrix", "BSRStructure", "BlockJacobi", "CLUSTER_COMPRESS",
     "CLUSTER_EXPAND", "COMBINE", "COMPRESS_GATHER", "COMPRESS_PLANAR",
     "ClusterPlan", "ClusteredOperator", "ClusteredPartialOperator",
-    "CombinePlan", "Constraints", "EXPAND", "EXPAND_PLANAR",
-    "ElementTable", "F64Operator", "FUSED_YC", "HybridSystem", "KERNELS",
+    "CombinePlan", "Constraints", "DistFEM", "DistPartition", "EXPAND",
+    "EXPAND_PLANAR", "ElementTable", "F64Operator", "FUSED_YC", "GroupMesh", "HaloFEM",
+    "HaloPartition", "HybridSystem", "KERNELS",
     "MatrixFreeOperator", "MixedConstraints", "PACKED_KERNELS",
     "PLANAR_READ", "PLANAR_WRITE", "PROBE_KERNELS", "PackedConstraints",
     "PackedMixedOperator", "PackedMixedSystem", "PackedPartialOperator",
-    "PackedPlan", "PackedSystem", "PartialAssemblyOperator",
+    "PackedPlan", "PackedSystem", "PartMesh", "PartialAssemblyOperator",
     "RELAYOUT_FWD", "RELAYOUT_INV", "ROW_ACCUMULATE", "RefineInfo",
     "RefinedSystem", "STAGED_KERNELS", "STATIC_KERNELS", "STIFFNESS_FUSED",
     "ScatterPlan", "ShellOperator", "SolveInfo", "StaticModel",
     "assemble_bsr", "assemble_dense", "assembly", "bicgstab",
     "block_apply", "block_operator", "bsr_matvec", "build_bsr_structure",
-    "build_hybrid", "build_static_model", "cg", "cluster_compress",
+    "build_distributed_fem", "build_halo_fem", "build_hybrid",
+    "build_static_model", "cg", "cluster_compress",
     "cluster_expand", "cluster_spmv", "combine", "comp_vdot",
     "compress_gather", "compress_planar", "cuda",
-    "diagonal_preconditioner", "dispatch", "elasticity_matrix",
+    "diagonal_preconditioner", "dispatch", "dist", "elasticity_matrix",
     "element_table", "enable_x64", "expand", "expand_planar", "fused_yc",
     "gmres", "h5_io", "human_readable_number", "hybrid_solve",
     "invert_block_planes", "kirchhoff_D_matrix", "lame_parameters",

@@ -1,15 +1,18 @@
-"""The packed fast path on one card: scalar- and block-Jacobi PCG.
+"""The packed fast path: scalar- and block-Jacobi PCG, then the same
+solve on a part mesh.
 
-The one-card half of tpufem's examples/packed_solve.py.  The packed
+The port of tpufem's examples/packed_solve.py.  The packed
 operator (ops.packed) is the fast SpMV of this framework: dense [rows,
 384] tiles, geometry factors instead of element stiffness, kernels
 fused_yc and combine in every apply.  PackedSystem wraps it with
 constraints and a scalar- (diagonal by compress_gather) or 3x3
 node-block-Jacobi preconditioner, each PCG block a CUDA graph on the
-card.  tpufem's sharded half (parallel.packed_dist over a device mesh)
-is not ported yet.
+card.  The sharded half runs parallel.packed_dist.PackedHaloFEM (block
+Jacobi) on a PartMesh of --parts parts of one device: kernels expand,
+compress_gather and combine per part on its remapped tables.
 
-    python -m tpufem_torch.examples.packed_solve [n] [--device cpu]
+    python -m tpufem_torch.examples.packed_solve [n] [--parts 4]
+                                                 [--device cpu]
                                                  # 6 n^2 * 2n c3d10 elements
 
 Float32 unless float64 is torch's default floating type.
@@ -29,6 +32,8 @@ def main(argv=None):
     ap.add_argument("n", nargs="?", type=int, default=12)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--parts", type=int, default=4,
+                    help="parts of the sharded solve's part mesh")
     args = ap.parse_args(argv)
     n = args.n
     coords, conn = meshgen.box_tet10(n, n, 2 * n, 1.0, 1.0, 2.0)
@@ -59,6 +64,22 @@ def main(argv=None):
               f"solve={time.time() - t0:.2f} s "
               f"tip uz={uz:.3e}")
         out[precond] = (info, uz)
+
+    # the same solve, sharded over the parts of a part mesh
+    from tpufem_torch.parallel.dist import PartMesh
+    from tpufem_torch.parallel.packed_dist import build_packed_halo_fem
+
+    mesh = PartMesh(args.parts, device=args.device)
+    fem, part = build_packed_halo_fem(coords, conn, "c3d10", 200e9, 0.3,
+                                      mesh=mesh, fixed_nodes=fixed,
+                                      dtype=dtype, precondition="block")
+    bX = part.pack_np(b.astype(np.float64 if dtype == torch.float64
+                               else np.float32))
+    uX, info = fem.pcg(bX, tol=1e-6, max_iter=20000)
+    uz = float(part.unpack_np(fem.gather(uX))[:, 2].min())
+    print(f"distributed ({mesh.n_parts} parts): status={int(info.status)} "
+          f"iters={int(info.iterations)} tip uz={uz:.3e}")
+    out["distributed"] = (info, uz)
     return out
 
 
