@@ -1,0 +1,228 @@
+"""Runs of every cell at a size the CPU holds, through the harness with
+the look for a card skipped: the program comes out correct; its control
+and each fault planted under the timed path come out not correct."""
+import ast
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from portbench import harness, spec, trace
+from portbench.tests.cells import WORKLOADS, tiny_cell
+
+SEED = 2 ** 31 + 77
+
+
+@pytest.fixture(autouse=True)
+def few_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def run(workload, trace_on=False, control=False, fault=None, n=(1, 1, 2)):
+    res, rc = harness.run_cell(tiny_cell(workload, n), SEED, 0.01, trace_on,
+                               "cpu", time.perf_counter(), control=control,
+                               fault=fault)
+    assert rc == 0
+    return res
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_program_is_correct(workload):
+    res = run(workload)
+    assert res["correct"] is True and res["failed"] == 0
+    assert res["attempted"] >= 1
+    assert set(res["metrics"]) == {"solve_s", "setup_s"}  # no card peak
+    assert list(res)[-1] == "compared"
+    assert res["compared"]["resid_max"]["value"] <= \
+        res["compared"]["resid_max"]["limit"]
+    json.dumps(res)
+
+
+def test_window_ends_with_the_solve_in_flight():
+    """A solve made to take two seconds and a little, in a mix of two
+    cases: a 2 s window ends with its first solve, mid-way through the
+    pass over the cases."""
+    def slow(path):
+        solve = path.solve
+
+        def slowed(b):
+            time.sleep(2.0)
+            return solve(b)
+        path.solve = slowed
+    cell = tiny_cell("tet10_box_1m_f64.pcg_f64")
+    case = cell.traffic["cases"][0]
+    cell.traffic = dict(cell.traffic, cases=[case, dict(case, name="again")])
+    res, rc = harness.run_cell(cell, SEED, 2.0, False, "cpu",
+                               time.perf_counter(), fault=slow)
+    assert rc == 0 and res["correct"] is True
+    assert res["attempted"] == 1
+    assert res["metrics"]["solve_s"]["value"] > 2.0
+
+
+def test_traced_run_reports_the_layers():
+    res = run("tet10_box_1m_f64.pcg_f64", trace_on=True)
+    assert res["correct"] is True
+    assert {"pcg_iters_per_solve", "pcg_iter_ms", "plan_build_s"} <= \
+        set(res["metrics"])
+    assert "breakdown" in res and res["device"]["window_s"] > 0
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_control_is_not_correct(workload):
+    # at (1, 1, 2) float32 round-off reads only 2.5-3.1 times the bar
+    res = run(workload, control=True, n=(3, 3, 3))
+    assert res["correct"] is False
+    c = res["compared"]
+    assert c["resid_max"]["value"] > 3 * c["resid_max"]["limit"]
+
+
+def _halve(path):
+    """Half of the elements left out and the rest counted twice (the mean
+    over the kept half), in every operator the path built."""
+    ws = []
+    if hasattr(path, "system") and path.system is not None:
+        ws.append(path.system.op.W)
+    if getattr(path, "refined", None) is not None:
+        ws += [W for _, _, _, W in path.refined.op64.chunks]
+    if hasattr(path, "model"):
+        ws += [op.K for op in path.model.solid_ops]
+    assert ws
+    for w in ws:
+        w[::2] = 0.0
+        w[1::2] *= 2.0
+
+
+def _alter(where):
+    def plant(path):
+        solve = path.solve
+
+        def altered(b):
+            u, conv, it, detail = solve(b)
+            u = u.copy()
+            nodes = (np.nonzero(np.abs(u).sum(1) == 0)[0] if where == "fixed"
+                     else np.nonzero(np.abs(u).sum(1) > 0)[0])
+            u[nodes[len(nodes) // 2], 0] += 0.01 * np.abs(u).max()
+            return u, conv, it, detail
+        path.solve = altered
+    return plant
+
+
+FAULTS = {"halved_batch": _halve, "altered_answer": _alter("free"),
+          "altered_fixed_dof": _alter("fixed")}
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_planted_fault_is_caught(workload, fault):
+    assert run(workload, fault=FAULTS[fault])["correct"] is False
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_unchanged_state_is_caught(workload, monkeypatch):
+    from tpufem_torch.solvers.cg import CGBlock
+    monkeypatch.setattr(CGBlock, "body", lambda self, n: None)
+    res = run(workload)
+    assert res["correct"] is False
+    assert res["compared"]["resid_max"]["value"] == 1.0
+
+
+def test_trace_summary_on_a_made_timeline():
+    dev = [("k1", 10.0, 20.0), ("k2", 15.0, 30.0), ("k1", 50.0, 60.0),
+           ("k3", 95.0, 130.0)]
+    host = [("portbench.traced", 0.0, 100.0), ("aten::item", 31.0, 49.0),
+            ("portbench.solve", 60.0, 100.0), ("cudaGraphLaunch", 70.0, 71.0)]
+    w = trace.summarize(dev, host, "portbench.traced")
+    assert w.window_s == pytest.approx(100e-6)
+    assert w.busy_s == pytest.approx((20 + 10 + 5) * 1e-6)
+    assert w.device_ops[0] == ["k1", pytest.approx(20e-6)]
+    gaps = [g for g, _ in w.idle_gaps]
+    assert w.idle_gaps[0][1] == pytest.approx(35e-6)     # 60 .. 95
+    assert gaps[0] == "portbench.solve > cudaGraphLaunch" or \
+        gaps[0] == "portbench.solve"
+    assert "portbench.traced > aten::item" in gaps        # 30 .. 50
+    assert trace.summarize(dev, host, "portbench.none") is None
+
+
+BANNED = set(harness.BANNED)
+PKG = os.path.dirname(spec.PKG + "/")
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_sources_import_no_jax_and_the_reference_nothing_of_the_program():
+    for dirpath, _, files in os.walk(PKG):
+        for fn in files:
+            if not fn.endswith(".py"):
+                continue
+            p = os.path.join(dirpath, fn)
+            tops = {m.split(".")[0] for m in _imports(p)}
+            assert not tops & BANNED, (p, tops & BANNED)
+            if os.sep + "reference" + os.sep in p or fn in ("mesh.py",
+                                                            "loads.py"):
+                assert "tpufem_torch" not in tops, p
+
+
+def test_banned_names_compared_whole(monkeypatch):
+    assert harness.loaded_banned() == [] or "tpufem" not in sys.modules
+    monkeypatch.setitem(sys.modules, "tpufem_torchlike", sys)
+    assert "tpufem" not in harness.loaded_banned()
+    monkeypatch.setitem(sys.modules, "jax.numpy", sys)
+    assert harness.loaded_banned() == ["jax"]
+
+
+def test_a_run_loads_no_jax_module():
+    code = ("import sys, time; from portbench.harness import run_cell; "
+            "from portbench.tests.cells import tiny_cell; "
+            "r, rc = run_cell(tiny_cell('tet10_box_1m_f64.pcg_f64'), 5, "
+            "0.01, False, 'cpu', time.perf_counter()); "
+            "print(sorted({m.split('.')[0] for m in sys.modules} & set("
+            f"{sorted(BANNED)!r})), r['correct'])")
+    out = subprocess.run([sys.executable, "-c", code], cwd=spec.ROOT,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[] True"
+
+
+def test_cli_refuses_without_a_card_or_the_program(tmp_path):
+    import shutil
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    shutil.copy(os.path.join(spec.ROOT, "BENCHMARK.json"), tmp_path)
+    shutil.copytree(PKG, tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    args = ["-m", "portbench.run", "--workload", WORKLOADS[0], "--seed",
+            "1", "--seconds", "1", "--trace", "0"]
+    for cwd in (spec.ROOT, tmp_path):
+        out = subprocess.run([sys.executable, *args], cwd=cwd,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0 and out.stdout.strip() == ""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_cell_on_the_card(workload):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    out = subprocess.run(
+        [sys.executable, "-m", "portbench.run", "--workload", workload,
+         "--seed", "99", "--seconds", "2", "--trace", "0"],
+        cwd=spec.ROOT, capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["correct"] is True and res["device"]["platform"] == "gpu"
