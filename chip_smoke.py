@@ -498,7 +498,9 @@ def bounds(op, itemsize: int, n_elements: int):
 
 def device_times(fn, reps: int):
     """[(kernel, ms, launches)] summed over `reps` calls of fn from
-    torch.profiler's device records, longest first."""
+    torch.profiler's device records, longest first.  The device copies of
+    the program's spans (tpufem_torch.*, user annotations whose length is
+    the span's) are left out: they are no device work."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -509,7 +511,9 @@ def device_times(fn, reps: int):
         torch.cuda.synchronize()
     return sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.key.startswith("tpufem_torch.")),
                   key=lambda r: -r[1])
 
 

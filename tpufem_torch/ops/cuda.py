@@ -26,6 +26,8 @@ from typing import Dict, Iterable, List, Optional
 
 import torch
 
+from ..utils.profiling import span
+
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "_build")
@@ -207,7 +209,8 @@ class Graph:
         before = [k.launches for k in REGISTRY]
         self.graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(self.graph, pool=pool):
+            with span("graph.capture"), torch.cuda.graph(self.graph,
+                                                         pool=pool):
                 fn()
         finally:
             self.counts = [(k, k.launches - n)

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..utils.profiling import count, span, spanned
 from . import fused_kernels as fk
 from . import packed_kernels as pk
 
@@ -230,304 +231,317 @@ class PackedPlan:
             meta=m, **{n: t(arrays[n]) for n in _TABLES})
 
     @staticmethod
+    @spanned("plan.build")
     def build(coords, conn, n_nodes: int, elems_per_cluster: int = 32,
               order: Optional[np.ndarray] = None, window_buckets: int = 8,
               device=None) -> "PackedPlan":
         """Build the plan in host numpy (native engine where available,
         numpy fallbacks otherwise) and move its tables to `device` (None:
-        the CUDA card)."""
+        the CUDA card).  Its stages are spans plan.order, plan.clusters,
+        plan.numbering, plan.slots, plan.windows, plan.buckets,
+        plan.tables and plan.to_device."""
         from .. import native
 
-        dev = resolve_device(device)
-        conn = np.asarray(conn)
-        coords = np.asarray(coords)
-        M, k = conn.shape
-        E_c = elems_per_cluster
-        if order is None:
-            order = morton_order(coords, conn)
-        conn_m = conn[order].astype(np.int32)
+        with span("plan.order"):
+            dev = resolve_device(device)
+            conn = np.asarray(conn)
+            coords = np.asarray(coords)
+            M, k = conn.shape
+            E_c = elems_per_cluster
+            if order is None:
+                order = morton_order(coords, conn)
+            conn_m = conn[order].astype(np.int32)
 
         # clusters: E_c consecutive Morton elements; halve ranges whose
         # unique-node count exceeds the 128-slot budget
-        Mpad0 = -(-M // E_c) * E_c
-        conn_u = np.full((Mpad0 // E_c, E_c, k), -1, np.int32)
-        conn_u.reshape(-1, k)[:M] = conn_m
-        cnt0 = _chunk_unique_counts(conn_u.reshape(-1, E_c * k))
-        good = cnt0 <= L_SLOTS
-        ranges = []                                    # (start, stop) pairs
-        for i in np.nonzero(good)[0]:
-            ranges.append((int(i) * E_c, min((int(i) + 1) * E_c, M)))
-        for i in np.nonzero(~good)[0]:                 # rare over-budget
-            stack = [(int(i) * E_c, min((int(i) + 1) * E_c, M))]
-            while stack:
-                a, b = stack.pop()
-                if (b - a <= 1 or np.unique(conn_m[a:b]).size <= L_SLOTS):
-                    ranges.append((a, b))
-                else:
-                    mid = (a + b) // 2
-                    stack.extend([(mid, b), (a, mid)])
-        ranges.sort()                                  # keep Morton locality
-        B = len(ranges)
-        Bpad = -(-B // TILE) * TILE
-        ra = np.full(Bpad, M, np.int64)
-        rl = np.zeros(Bpad, np.int64)
-        ra[:B] = [a for a, _ in ranges]
-        rl[:B] = [b - a for a, b in ranges]
-        idx = np.minimum(ra[:, None] + np.arange(E_c), M)   # [Bpad, E_c]
-        maskj = np.arange(E_c)[None, :] < rl[:, None]
-        conn_pad = np.concatenate([conn_m, np.full((1, k), -1, np.int32)])
-        order_pad = np.concatenate([order, [-1]])
-        conn_c = np.where(maskj[:, :, None], conn_pad[idx], -1)
-        esrc = np.where(maskj, order_pad[idx], -1).astype(np.int32)
-        B = Bpad
+        with span("plan.clusters"):
+            Mpad0 = -(-M // E_c) * E_c
+            conn_u = np.full((Mpad0 // E_c, E_c, k), -1, np.int32)
+            conn_u.reshape(-1, k)[:M] = conn_m
+            cnt0 = _chunk_unique_counts(conn_u.reshape(-1, E_c * k))
+            good = cnt0 <= L_SLOTS
+            ranges = []                                # (start, stop) pairs
+            for i in np.nonzero(good)[0]:
+                ranges.append((int(i) * E_c, min((int(i) + 1) * E_c, M)))
+            for i in np.nonzero(~good)[0]:                 # rare over-budget
+                stack = [(int(i) * E_c, min((int(i) + 1) * E_c, M))]
+                while stack:
+                    a, b = stack.pop()
+                    if (b - a <= 1 or np.unique(conn_m[a:b]).size <= L_SLOTS):
+                        ranges.append((a, b))
+                    else:
+                        mid = (a + b) // 2
+                        stack.extend([(mid, b), (a, mid)])
+            ranges.sort()                              # keep Morton locality
+            B = len(ranges)
+            Bpad = -(-B // TILE) * TILE
+            ra = np.full(Bpad, M, np.int64)
+            rl = np.zeros(Bpad, np.int64)
+            ra[:B] = [a for a, _ in ranges]
+            rl[:B] = [b - a for a, b in ranges]
+            idx = np.minimum(ra[:, None] + np.arange(E_c), M)   # [Bpad, E_c]
+            maskj = np.arange(E_c)[None, :] < rl[:, None]
+            conn_pad = np.concatenate([conn_m, np.full((1, k), -1, np.int32)])
+            order_pad = np.concatenate([order, [-1]])
+            conn_c = np.where(maskj[:, :, None], conn_pad[idx], -1)
+            esrc = np.where(maskj, order_pad[idx], -1).astype(np.int32)
+            B = Bpad
 
         # first-touch node numbering (cluster-major)
-        flat = conn_c.reshape(-1)
-        nfo = native.first_touch(flat, n_nodes)
-        if nfo is not None:
-            new_from_old = nfo
-            n_ref = int(new_from_old.max()) + 1
-        else:
-            valid = flat >= 0
-            uniq, first_idx = np.unique(flat[valid], return_index=True)
-            touch_order = np.argsort(first_idx, kind="stable")
-            new_from_old = np.full(n_nodes, -1, np.int32)
-            new_from_old[uniq[touch_order]] = np.arange(uniq.size,
-                                                        dtype=np.int32)
-            n_ref = uniq.size
-        # unreferenced nodes go after all referenced ones (stable)
-        missing = np.nonzero(new_from_old < 0)[0]
-        new_from_old[missing] = n_ref + np.arange(missing.size)
-        Nb = -(-n_nodes // BLK)
-        Nb = -(-Nb // TILE) * TILE
-        Npad = Nb * BLK
-        old_from_new = np.full(Npad, -1, np.int64)
-        old_from_new[new_from_old] = np.arange(n_nodes)
-        gconn = np.where(conn_c >= 0, new_from_old[np.maximum(conn_c, 0)], -1)
+        with span("plan.numbering"):
+            flat = conn_c.reshape(-1)
+            nfo = native.first_touch(flat, n_nodes)
+            if nfo is not None:
+                new_from_old = nfo
+                n_ref = int(new_from_old.max()) + 1
+            else:
+                valid = flat >= 0
+                uniq, first_idx = np.unique(flat[valid], return_index=True)
+                touch_order = np.argsort(first_idx, kind="stable")
+                new_from_old = np.full(n_nodes, -1, np.int32)
+                new_from_old[uniq[touch_order]] = np.arange(uniq.size,
+                                                            dtype=np.int32)
+                n_ref = uniq.size
+            # unreferenced nodes go after all referenced ones (stable)
+            missing = np.nonzero(new_from_old < 0)[0]
+            new_from_old[missing] = n_ref + np.arange(missing.size)
+            Nb = -(-n_nodes // BLK)
+            Nb = -(-Nb // TILE) * TILE
+            Npad = Nb * BLK
+            old_from_new = np.full(Npad, -1, np.int64)
+            old_from_new[new_from_old] = np.arange(n_nodes)
+            gconn = np.where(conn_c >= 0,
+                             new_from_old[np.maximum(conn_c, 0)], -1)
 
         # per-cluster slots: sorted unique new node ids
-        rows = gconn.reshape(B, E_c * k)
-        _slots = native.cluster_slots(rows)
-        if _slots is not None:
-            l2g, slot_flat, mx = _slots
-            if mx > L_SLOTS:
-                raise ValueError("cluster slot overflow after splitting; "
-                                 "lower elems_per_cluster")
-        else:
-            srt = np.sort(rows, axis=1)
-            first = np.ones_like(srt, dtype=bool)
-            first[:, 1:] = srt[:, 1:] != srt[:, :-1]
-            first &= srt >= 0
-            n_slots = first.sum(axis=1)
-            if int(n_slots.max()) > L_SLOTS:
-                raise ValueError("cluster slot overflow after splitting; "
-                                 "lower elems_per_cluster")
-            l2g = np.full((B, L_SLOTS), -1, np.int32)
-            bidx = np.broadcast_to(np.arange(B)[:, None], srt.shape)
-            slot_of_sorted = np.cumsum(first, axis=1) - 1
-            l2g[bidx[first], slot_of_sorted[first]] = srt[first]
-            order_in_row = np.argsort(rows, axis=1, kind="stable")
-            slot_flat = np.zeros_like(rows)
-            slot_sorted = np.maximum(slot_of_sorted, 0)
-            np.put_along_axis(slot_flat, order_in_row, slot_sorted, axis=1)
-        slot_of_entry = slot_flat.reshape(B, E_c, k)        # [B, E_c, k]
+        with span("plan.slots"):
+            rows = gconn.reshape(B, E_c * k)
+            _slots = native.cluster_slots(rows)
+            if _slots is not None:
+                l2g, slot_flat, mx = _slots
+                if mx > L_SLOTS:
+                    raise ValueError("cluster slot overflow after splitting; "
+                                     "lower elems_per_cluster")
+            else:
+                srt = np.sort(rows, axis=1)
+                first = np.ones_like(srt, dtype=bool)
+                first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+                first &= srt >= 0
+                n_slots = first.sum(axis=1)
+                if int(n_slots.max()) > L_SLOTS:
+                    raise ValueError("cluster slot overflow after splitting; "
+                                     "lower elems_per_cluster")
+                l2g = np.full((B, L_SLOTS), -1, np.int32)
+                bidx = np.broadcast_to(np.arange(B)[:, None], srt.shape)
+                slot_of_sorted = np.cumsum(first, axis=1) - 1
+                l2g[bidx[first], slot_of_sorted[first]] = srt[first]
+                order_in_row = np.argsort(rows, axis=1, kind="stable")
+                slot_flat = np.zeros_like(rows)
+                slot_sorted = np.maximum(slot_of_sorted, 0)
+                np.put_along_axis(slot_flat, order_in_row, slot_sorted, axis=1)
+            slot_of_entry = slot_flat.reshape(B, E_c, k)        # [B, E_c, k]
 
-        # element-lane slot table, kk-major: r = kk * E_c + e
-        Rp = -(-k * E_c // 128) * 128
-        lconn = np.zeros((B, Rp), np.int32)
-        lconn[:, : k * E_c] = np.transpose(slot_of_entry, (0, 2, 1)
-                                           ).reshape(B, k * E_c)
+            # element-lane slot table, kk-major: r = kk * E_c + e
+            Rp = -(-k * E_c // 128) * 128
+            lconn = np.zeros((B, Rp), np.int32)
+            lconn[:, : k * E_c] = np.transpose(slot_of_entry, (0, 2, 1)
+                                               ).reshape(B, k * E_c)
 
-        # compress incidence widths per (cluster, 128-lane chunk); pad
-        # element lanes are excluded, order within a slot is ascending lane
-        kEc = k * E_c
-        Gch = -(-kEc // 128)
-        ev = esrc >= 0                              # [B, E_c]
-        wid_bg = native.cinc_widths(lconn, ev, k, E_c, Gch)
-        _np_inc = wid_bg is None
-        if _np_inc:
-            lane_valid = np.tile(ev, (1, k))        # lane r = kk*E_c + e
-            vb2, vr2 = np.nonzero(lane_valid)
-            sl2 = lconn[:, :kEc][vb2, vr2].astype(np.int64)
-            g2 = vr2 // 128
-            lp2 = (vr2 % 128).astype(np.int32)
-            ckey = ((vb2 * Gch + g2) * 128 + sl2).astype(np.int64)
-            cord = np.argsort(ckey, kind="stable")
-            ks = ckey[cord]
-            newg = np.ones(ks.size, bool)
-            newg[1:] = ks[1:] != ks[:-1]
-            aidx = np.arange(ks.size, dtype=np.int64)
-            start = aidx[newg][np.cumsum(newg) - 1]
-            vpos = aidx - start
-            gs = (ks // 128) % Gch
-            run_starts = aidx[newg]
-            run_counts = np.diff(np.append(run_starts, ks.size))
-            run_bg = ks[newg] // 128                   # (b * Gch + g)
-            bg_new = np.ones(run_bg.size, bool)
-            bg_new[1:] = run_bg[1:] != run_bg[:-1]
-            bg_starts = np.nonzero(bg_new)[0]
-            wid_bg = np.zeros((B, Gch), np.int64)
-            if run_counts.size:
-                ub = run_bg[bg_starts]
-                wid_bg[ub // Gch, ub % Gch] = np.maximum.reduceat(
-                    run_counts, bg_starts)
-            ent_b = vb2[cord]
-            ent_slot = (ks % 128).astype(np.int64)
-            ent_lane = lp2[cord].astype(np.uint32)
+            # compress incidence widths per (cluster, 128-lane chunk); pad
+            # element lanes are excluded, order within a slot is ascending lane
+            kEc = k * E_c
+            Gch = -(-kEc // 128)
+            ev = esrc >= 0                              # [B, E_c]
+            wid_bg = native.cinc_widths(lconn, ev, k, E_c, Gch)
+            _np_inc = wid_bg is None
+            if _np_inc:
+                lane_valid = np.tile(ev, (1, k))        # lane r = kk*E_c + e
+                vb2, vr2 = np.nonzero(lane_valid)
+                sl2 = lconn[:, :kEc][vb2, vr2].astype(np.int64)
+                g2 = vr2 // 128
+                lp2 = (vr2 % 128).astype(np.int32)
+                ckey = ((vb2 * Gch + g2) * 128 + sl2).astype(np.int64)
+                cord = np.argsort(ckey, kind="stable")
+                ks = ckey[cord]
+                newg = np.ones(ks.size, bool)
+                newg[1:] = ks[1:] != ks[:-1]
+                aidx = np.arange(ks.size, dtype=np.int64)
+                start = aidx[newg][np.cumsum(newg) - 1]
+                vpos = aidx - start
+                gs = (ks // 128) % Gch
+                run_starts = aidx[newg]
+                run_counts = np.diff(np.append(run_starts, ks.size))
+                run_bg = ks[newg] // 128                   # (b * Gch + g)
+                bg_new = np.ones(run_bg.size, bool)
+                bg_new[1:] = run_bg[1:] != run_bg[:-1]
+                bg_starts = np.nonzero(bg_new)[0]
+                wid_bg = np.zeros((B, Gch), np.int64)
+                if run_counts.size:
+                    ub = run_bg[bg_starts]
+                    wid_bg[ub // Gch, ub % Gch] = np.maximum.reduceat(
+                        run_counts, bg_starts)
+                ent_b = vb2[cord]
+                ent_slot = (ks % 128).astype(np.int64)
+                ent_lane = lp2[cord].astype(np.uint32)
 
         # node-block windows per cluster + per-slot source coordinates
-        _cw = native.cluster_windows(l2g, Nb)
-        if _cw is not None:
-            win_full, wn_cnt32, wslot, jslot = _cw
-            wn_cnt = wn_cnt32.astype(np.int64)
-            Wn = max(int(wn_cnt.max()) if B else 1, 1)
-            win_nodes = np.ascontiguousarray(win_full[:, :Wn])
-            wslot = np.where(wslot == 128, Wn, wslot).astype(np.int32)
-            wc_cnt32 = native.block_windows_count(l2g, Nb)
-            assert wc_cnt32 is not None
-            wc_cnt = wc_cnt32.astype(np.int64)
-            Wc = max(int(wc_cnt.max()) if Nb else 1, 1)
-            winc = slotidx = None   # filled packed after the bucketing
-        else:
-            blk = np.where(l2g >= 0, l2g // BLK, -1)
-            bsort = np.sort(blk, axis=1)
-            bfirst = np.ones_like(bsort, dtype=bool)
-            bfirst[:, 1:] = bsort[:, 1:] != bsort[:, :-1]
-            bfirst &= bsort >= 0
-            wn_cnt = bfirst.sum(axis=1).astype(np.int64)
-            Wn = int(wn_cnt.max()) if B else 1
-            Wn = max(Wn, 1)
-            win_nodes = np.full((B, Wn), Nb, np.int32)      # pad -> zero row
-            bidx2 = np.broadcast_to(np.arange(B)[:, None], bsort.shape)
-            pair_b = bidx2[bfirst]
-            pair_blk = bsort[bfirst]
-            pos_in_b = (np.cumsum(bfirst, axis=1) - 1)[bfirst]
-            win_nodes[pair_b, pos_in_b] = pair_blk
-            wslot = np.full((B, L_SLOTS), Wn, np.int32)
-            jslot = np.zeros((B, L_SLOTS), np.int32)
-            vb, vs = np.nonzero(l2g >= 0)
-            g = l2g[vb, vs]
-            win_flat = (win_nodes
-                        + np.arange(B, dtype=np.int64)[:, None] * (Nb + 2)
-                        ).ravel()
-            w = (np.searchsorted(win_flat, vb * np.int64(Nb + 2) + g // BLK)
-                 - vb * Wn)
-            wslot[vb, vs] = w
-            jslot[vb, vs] = g % BLK
-
-            # cluster windows per node block + slot index of each node
-            jblk = g // BLK
-            key_all = jblk * np.int64(B + 1) + vb
-            nat = (native.unique_inverse_i64(key_all) if key_all.size
-                   else None)
-            if nat is not None:
-                key, w_of_pair = nat
+        with span("plan.windows"):
+            _cw = native.cluster_windows(l2g, Nb)
+            if _cw is not None:
+                win_full, wn_cnt32, wslot, jslot = _cw
+                wn_cnt = wn_cnt32.astype(np.int64)
+                Wn = max(int(wn_cnt.max()) if B else 1, 1)
+                win_nodes = np.ascontiguousarray(win_full[:, :Wn])
+                wslot = np.where(wslot == 128, Wn, wslot).astype(np.int32)
+                wc_cnt32 = native.block_windows_count(l2g, Nb)
+                assert wc_cnt32 is not None
+                wc_cnt = wc_cnt32.astype(np.int64)
+                Wc = max(int(wc_cnt.max()) if Nb else 1, 1)
+                winc = slotidx = None   # filled packed after the bucketing
             else:
-                key, w_of_pair = np.unique(key_all, return_inverse=True)
-            up_blk = (key // (B + 1)).astype(np.int64)
-            up_cl = (key % (B + 1)).astype(np.int64)
-            wc_cnt = np.bincount(up_blk, minlength=Nb).astype(np.int64)
-            Wc = int(wc_cnt.max()) if key.size else 1
-            Wc = max(Wc, 1)
-            winc = np.full((Nb, Wc), B, np.int32)           # pad -> zero row
-            srt_blocks, blk_starts = np.unique(up_blk, return_index=True)
-            pos = np.arange(key.size) - blk_starts[
-                np.searchsorted(srt_blocks, up_blk)]
-            winc[up_blk, pos] = up_cl
-            slotidx = np.full((Nb, Wc, BLK), -1, np.int32)
-            slotidx[jblk, pos[w_of_pair], g % BLK] = vs
+                blk = np.where(l2g >= 0, l2g // BLK, -1)
+                bsort = np.sort(blk, axis=1)
+                bfirst = np.ones_like(bsort, dtype=bool)
+                bfirst[:, 1:] = bsort[:, 1:] != bsort[:, :-1]
+                bfirst &= bsort >= 0
+                wn_cnt = bfirst.sum(axis=1).astype(np.int64)
+                Wn = int(wn_cnt.max()) if B else 1
+                Wn = max(Wn, 1)
+                win_nodes = np.full((B, Wn), Nb, np.int32)  # pad -> zero row
+                bidx2 = np.broadcast_to(np.arange(B)[:, None], bsort.shape)
+                pair_b = bidx2[bfirst]
+                pair_blk = bsort[bfirst]
+                pos_in_b = (np.cumsum(bfirst, axis=1) - 1)[bfirst]
+                win_nodes[pair_b, pos_in_b] = pair_blk
+                wslot = np.full((B, L_SLOTS), Wn, np.int32)
+                jslot = np.zeros((B, L_SLOTS), np.int32)
+                vb, vs = np.nonzero(l2g >= 0)
+                g = l2g[vb, vs]
+                win_flat = (win_nodes
+                            + np.arange(B, dtype=np.int64)[:, None] * (Nb + 2)
+                            ).ravel()
+                w = (np.searchsorted(win_flat,
+                                     vb * np.int64(Nb + 2) + g // BLK)
+                     - vb * Wn)
+                wslot[vb, vs] = w
+                jslot[vb, vs] = g % BLK
+
+                # cluster windows per node block + slot index of each node
+                jblk = g // BLK
+                key_all = jblk * np.int64(B + 1) + vb
+                nat = (native.unique_inverse_i64(key_all) if key_all.size
+                       else None)
+                if nat is not None:
+                    key, w_of_pair = nat
+                else:
+                    key, w_of_pair = np.unique(key_all, return_inverse=True)
+                up_blk = (key // (B + 1)).astype(np.int64)
+                up_cl = (key % (B + 1)).astype(np.int64)
+                wc_cnt = np.bincount(up_blk, minlength=Nb).astype(np.int64)
+                Wc = int(wc_cnt.max()) if key.size else 1
+                Wc = max(Wc, 1)
+                winc = np.full((Nb, Wc), B, np.int32)       # pad -> zero row
+                srt_blocks, blk_starts = np.unique(up_blk, return_index=True)
+                pos = np.arange(key.size) - blk_starts[
+                    np.searchsorted(srt_blocks, up_blk)]
+                winc[up_blk, pos] = up_cl
+                slotidx = np.full((Nb, Wc, BLK), -1, np.int32)
+                slotidx[jblk, pos[w_of_pair], g % BLK] = vs
 
         # window bucketing: clusters sorted by node-window count, blocks by
         # cluster-window count (stable); the block permutation goes into
         # the node numbering, the cluster permutation into the tables
-        if window_buckets == 0:
-            cperm = np.arange(B)
-            bperm = np.arange(Nb)
-            c_groups = ((0, B, int(wn_cnt.max()) if B else 0),)
-            b_groups = ((0, Nb, int(wc_cnt.max()) if Nb else 0),)
-        else:
-            cperm = np.argsort(wn_cnt, kind="stable")
-            bperm = np.argsort(wc_cnt, kind="stable")
-            c_groups = _bucket_groups(wn_cnt[cperm], window_buckets)
-            b_groups = _bucket_groups(wc_cnt[bperm], window_buckets)
-        cpos = np.empty(B, np.int64)
-        cpos[cperm] = np.arange(B)
-        bpos = np.empty(Nb, np.int64)
-        bpos[bperm] = np.arange(Nb)
-        new_from_old = bpos[new_from_old // BLK] * BLK + new_from_old % BLK
-        old_from_new = old_from_new.reshape(Nb, BLK)[bperm].reshape(-1)
-        win_nodes = np.where(win_nodes < Nb,
-                             bpos[np.minimum(win_nodes, Nb - 1)], Nb)
-        if winc is None:
-            winc, slotidx = native.block_windows_fill_packed(
-                l2g, Nb, Wc, bpos, cpos)
-        else:
-            winc = winc[bperm]
-            # byte-pack slotidx 4 windows per int32 word (value = slot + 1),
-            # in row chunks to bound the transient
-            Wcp4 = max(-(-Wc // 4), 1)
-            packed_si = np.empty((Nb, Wcp4, BLK), np.int32)
-            CH = 1 << 13
-            sv = np.zeros((min(CH, Nb), Wcp4 * 4, BLK), np.uint32)
-            for r0 in range(0, Nb, CH):
-                r1 = min(r0 + CH, Nb)
-                svc = sv[:r1 - r0]
-                svc[:, Wc:] = 0
-                svc[:, :Wc] = (slotidx[bperm[r0:r1]].astype(np.int64) + 1
-                               ).astype(np.uint32)
-                packed_si[r0:r1] = (svc[:, 0::4] | (svc[:, 1::4] << 8)
-                                    | (svc[:, 2::4] << 16)
-                                    | (svc[:, 3::4] << 24)).view(np.int32)
-            slotidx = packed_si
-            winc = np.where(winc < B, cpos[np.minimum(winc, B - 1)], B)
-        win_nodes = win_nodes[cperm]
-        wslot = wslot[cperm]
-        jslot = jslot[cperm]
-        lconn = lconn[cperm]
-        esrc = esrc[cperm]
+        with span("plan.buckets"):
+            if window_buckets == 0:
+                cperm = np.arange(B)
+                bperm = np.arange(Nb)
+                c_groups = ((0, B, int(wn_cnt.max()) if B else 0),)
+                b_groups = ((0, Nb, int(wc_cnt.max()) if Nb else 0),)
+            else:
+                cperm = np.argsort(wn_cnt, kind="stable")
+                bperm = np.argsort(wc_cnt, kind="stable")
+                c_groups = _bucket_groups(wn_cnt[cperm], window_buckets)
+                b_groups = _bucket_groups(wc_cnt[bperm], window_buckets)
+            cpos = np.empty(B, np.int64)
+            cpos[cperm] = np.arange(B)
+            bpos = np.empty(Nb, np.int64)
+            bpos[bperm] = np.arange(Nb)
+            new_from_old = bpos[new_from_old // BLK] * BLK + new_from_old % BLK
+            old_from_new = old_from_new.reshape(Nb, BLK)[bperm].reshape(-1)
+            win_nodes = np.where(win_nodes < Nb,
+                                 bpos[np.minimum(win_nodes, Nb - 1)], Nb)
+            if winc is None:
+                winc, slotidx = native.block_windows_fill_packed(
+                    l2g, Nb, Wc, bpos, cpos)
+            else:
+                winc = winc[bperm]
+                # byte-pack slotidx 4 windows per int32 word (value =
+                # slot + 1), in row chunks to bound the transient
+                Wcp4 = max(-(-Wc // 4), 1)
+                packed_si = np.empty((Nb, Wcp4, BLK), np.int32)
+                CH = 1 << 13
+                sv = np.zeros((min(CH, Nb), Wcp4 * 4, BLK), np.uint32)
+                for r0 in range(0, Nb, CH):
+                    r1 = min(r0 + CH, Nb)
+                    svc = sv[:r1 - r0]
+                    svc[:, Wc:] = 0
+                    svc[:, :Wc] = (slotidx[bperm[r0:r1]].astype(np.int64) + 1
+                                   ).astype(np.uint32)
+                    packed_si[r0:r1] = (svc[:, 0::4] | (svc[:, 1::4] << 8)
+                                        | (svc[:, 2::4] << 16)
+                                        | (svc[:, 3::4] << 24)).view(np.int32)
+                slotidx = packed_si
+                winc = np.where(winc < B, cpos[np.minimum(winc, B - 1)], B)
+            win_nodes = win_nodes[cperm]
+            wslot = wslot[cperm]
+            jslot = jslot[cperm]
+            lconn = lconn[cperm]
+            esrc = esrc[cperm]
 
         # per-bucket compress incidence tables, byte-packed 4 per int32
-        if _np_inc:
-            grp_of = np.zeros(B, np.int64)
+        with span("plan.tables"):
+            if _np_inc:
+                grp_of = np.zeros(B, np.int64)
+                for gi, (s, ng, _) in enumerate(c_groups):
+                    grp_of[cperm[s:s + ng]] = gi
+                ent_grp = grp_of[ent_b]
+            ev_perm = esrc >= 0
+            cv_widths = []
+            cinc_groups = []
             for gi, (s, ng, _) in enumerate(c_groups):
-                grp_of[cperm[s:s + ng]] = gi
-            ent_grp = grp_of[ent_b]
-        ev_perm = esrc >= 0
-        cv_widths = []
-        cinc_groups = []
-        for gi, (s, ng, _) in enumerate(c_groups):
-            wid_g = (wid_bg[cperm[s:s + ng]].astype(np.int64).max(axis=0)
-                     if ng else np.zeros(Gch, np.int64))
-            cv_widths.append(tuple(int(x) for x in wid_g))
-            voff_g = np.zeros(Gch, np.int64)
-            voff_g[1:] = np.cumsum(wid_g)[:-1]
-            Wp = max(-(-int(wid_g.sum()) // 4), 1)
-            if not _np_inc:
-                packed = native.cinc_fill_packed(
-                    lconn, ev_perm, np.arange(s, s + ng), k, E_c, Gch,
-                    voff_g, Wp)
-                assert packed is not None
-            else:
-                vals = np.zeros((ng, Wp * 4, 128), np.uint32)
-                me = ent_grp == gi
-                vals[cpos[ent_b[me]] - s, voff_g[gs[me]] + vpos[me],
-                     ent_slot[me]] = ent_lane[me] + 1
-                packed = np.ascontiguousarray(
-                    vals[:, 0::4] | (vals[:, 1::4] << 8)
-                    | (vals[:, 2::4] << 16)
-                    | (vals[:, 3::4] << 24)).view(np.int32)
-            cinc_groups.append(packed)
+                wid_g = (wid_bg[cperm[s:s + ng]].astype(np.int64).max(axis=0)
+                         if ng else np.zeros(Gch, np.int64))
+                cv_widths.append(tuple(int(x) for x in wid_g))
+                voff_g = np.zeros(Gch, np.int64)
+                voff_g[1:] = np.cumsum(wid_g)[:-1]
+                Wp = max(-(-int(wid_g.sum()) // 4), 1)
+                if not _np_inc:
+                    packed = native.cinc_fill_packed(
+                        lconn, ev_perm, np.arange(s, s + ng), k, E_c, Gch,
+                        voff_g, Wp)
+                    assert packed is not None
+                else:
+                    vals = np.zeros((ng, Wp * 4, 128), np.uint32)
+                    me = ent_grp == gi
+                    vals[cpos[ent_b[me]] - s, voff_g[gs[me]] + vpos[me],
+                         ent_slot[me]] = ent_lane[me] + 1
+                    packed = np.ascontiguousarray(
+                        vals[:, 0::4] | (vals[:, 1::4] << 8)
+                        | (vals[:, 2::4] << 16)
+                        | (vals[:, 3::4] << 24)).view(np.int32)
+                cinc_groups.append(packed)
 
-        meta = PackedMeta(n_nodes, Nb, B, E_c, k, Rp, Wn, Wc,
-                          c_groups, b_groups, tuple(cv_widths))
-        arrays = dict(win_nodes=win_nodes, wslot=wslot, jslot=jslot,
-                      lconn=lconn, winc=winc, slotidx=slotidx,
-                      new_from_old=new_from_old, old_from_new=old_from_new,
-                      esrc=esrc.reshape(-1))
-        for i, c in enumerate(cinc_groups):
-            arrays[f"cinc_{i}"] = c
-        return PackedPlan.from_arrays(arrays, PackedPlan._meta_dict(meta),
-                                      dev)
+            meta = PackedMeta(n_nodes, Nb, B, E_c, k, Rp, Wn, Wc,
+                              c_groups, b_groups, tuple(cv_widths))
+            arrays = dict(win_nodes=win_nodes, wslot=wslot, jslot=jslot,
+                          lconn=lconn, winc=winc, slotidx=slotidx,
+                          new_from_old=new_from_old, old_from_new=old_from_new,
+                          esrc=esrc.reshape(-1))
+            for i, c in enumerate(cinc_groups):
+                arrays[f"cinc_{i}"] = c
+        with span("plan.to_device"):
+            return PackedPlan.from_arrays(arrays, PackedPlan._meta_dict(meta),
+                                          dev)
 
     # -- disk cache (tpufem's format: .npy tables + meta.json, version 1) ---
     _SAVE_VERSION = 1
@@ -1298,6 +1312,7 @@ class PackedSystem:
             it = int(info.iterations)
             done += it
             x0X = uX
+            count("host_syncs", 2)          # the count and the status
             if int(info.status) != MAX_ITER or it == 0:
                 break
         info = info._replace(iterations=torch.tensor(done))
@@ -1328,6 +1343,7 @@ class PackedSystem:
             x0X = uX
             if progress is not None:
                 progress(done, float(h[-1]) if h.size else float("nan"))
+            count("host_syncs", 3)          # the count, history, status
             if int(info.status) != MAX_ITER or it == 0:
                 break
         status = torch.where(info.status == RUNNING, MAX_ITER, info.status)

@@ -28,6 +28,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import count, span, spanned
+
 # Status codes (tpufem.solvers.cg)
 RUNNING = 0
 CONVERGED = 1
@@ -189,6 +191,10 @@ class CGBlock(GraphedBlock):
         self.set_state(like)
         self.state = CGState(like)
 
+    def run(self, n: int) -> None:
+        count("cg.blocks")
+        super().run(n)
+
     def vdot(self, a, c):
         if isinstance(self.ddt, str) and self.ddt in ("compensated", "kahan"):
             return comp_vdot(a, c).to(self.dtype)
@@ -243,13 +249,18 @@ class CGBlock(GraphedBlock):
             if val is not buf:
                 buf.copy_(val)
 
+    @spanned("cg.solve")
     def solve(self, b: torch.Tensor, *, x0: Optional[torch.Tensor] = None,
               max_iter: int = 1000, resume_state=None,
               return_state: bool = False):
         """(P)CG on A u = b with this block's A, constraints, M_inv, tol,
         eps, history and dot dtype: the prologue eagerly, then blocks of
         CHECK_EVERY iterations (see cg).  A block kept by its caller serves
-        many solves with the same graphs."""
+        many solves with the same graphs.
+
+        Spans: cg.prologue, then for each block cg.sync (the host's read of
+        the status, counted in host_syncs) and cg.launch (the block's graph
+        replay; the block itself on the CPU)."""
         dtype = b.dtype
         dev = b.device
         if b.shape != self.state.u.shape or dtype != self.dtype:
@@ -260,34 +271,41 @@ class CGBlock(GraphedBlock):
             self.A, self.project, self.set_state, self.apply_M, self.vdot)
         tol, record = self.tol, self.record
 
-        u = set_state(torch.zeros_like(b) if x0 is None else x0.to(dtype))
-        r = project(b - A(u))
-        z = apply_M(r)
-        rz = vdot(r, z)
-        if resume_state is None:
-            p = z
-        else:
-            p_prev, rz_prev = resume_state
-            rz_prev = torch.as_tensor(rz_prev, dtype=dtype, device=dev)
-            p = torch.where(rz_prev > 0, project(p_prev.to(dtype)), z)
+        with span("cg.prologue"):
+            u = set_state(torch.zeros_like(b) if x0 is None
+                          else x0.to(dtype))
+            r = project(b - A(u))
+            z = apply_M(r)
+            rz = vdot(r, z)
+            if resume_state is None:
+                p = z
+            else:
+                p_prev, rz_prev = resume_state
+                rz_prev = torch.as_tensor(rz_prev, dtype=dtype, device=dev)
+                p = torch.where(rz_prev > 0, project(p_prev.to(dtype)), z)
 
-        hist = torch.full((max_iter + 1 if record else 1,), float("inf"),
-                          dtype=dtype, device=dev)
-        r0norm = torch.sqrt(vdot(r, r))
-        if record:
-            hist[0] = r0norm
-        status = torch.where(r0norm < tol, CONVERGED, RUNNING).to(torch.int32)
+            hist = torch.full((max_iter + 1 if record else 1,),
+                              float("inf"), dtype=dtype, device=dev)
+            r0norm = torch.sqrt(vdot(r, r))
+            if record:
+                hist[0] = r0norm
+            status = torch.where(r0norm < tol, CONVERGED,
+                                 RUNNING).to(torch.int32)
 
-        st = self.state
-        for name, val in (("u", u), ("r", r), ("p", p), ("rz", rz),
-                          ("hlast", r0norm), ("status", status)):
-            getattr(st, name).copy_(val)
-        st.i.zero_()
+            st = self.state
+            for name, val in (("u", u), ("r", r), ("p", p), ("rz", rz),
+                              ("hlast", r0norm), ("status", status)):
+                getattr(st, name).copy_(val)
+            st.i.zero_()
         for it in range(0, max_iter, CHECK_EVERY):
-            if int(st.status) != RUNNING:
+            with span("cg.sync"):
+                running = int(st.status) == RUNNING
+            count("host_syncs")
+            if not running:
                 break
             n = min(CHECK_EVERY, max_iter - it)
-            self.run(n)
+            with span("cg.launch"):
+                self.run(n)
             if record:
                 hist[it + 1:it + 1 + n] = st.hblock[:n]
 

@@ -29,6 +29,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import count, span, spanned
+
 
 class RefineInfo(NamedTuple):
     converged: bool
@@ -266,22 +268,30 @@ class RefinedSystem:
         bX = self.plan.pack_flat(r / rn, torch.float32)
         return rn, bX
 
+    @spanned("refine.solve")
     def solve(self, b, tol_rel: float = 1e-6, inner_tol: float = 5e-3,
               inner_max_iter: int = 1500, every: int = 500,
               max_cycles: int = 10, progress=None):
-        """b [N, 3] or flat [N*3] -> (u flat [N*3] f64, RefineInfo)."""
+        """b [N, 3] or flat [N*3] -> (u flat [N*3] f64, RefineInfo).
+
+        Spans: refine.residual (each f64 residual and its read) and
+        refine.inner (each inner solve); the rest of refine.solve is the
+        refinement's own work."""
         dev = self._mask.device
         b32f = torch.where(self._mask,
                            torch.as_tensor(b, dtype=torch.float32,
                                            device=dev).reshape(-1), 0.0)
         bn = float(torch.linalg.norm(b32f.to(torch.float64)))
+        count("host_syncs")
         u64f = torch.zeros(b32f.shape[0], dtype=torch.float64, device=dev)
         hist = []
         inner_total = 0
         cycles = 0
         for cycle in range(max_cycles):
-            rn_t, bX = self._resid(u64f, b32f)
-            rn = float(rn_t)
+            with span("refine.residual"):
+                rn_t, bX = self._resid(u64f, b32f)
+                rn = float(rn_t)
+            count("host_syncs")
             hist.append(rn)
             if progress is not None:
                 progress(cycle, inner_total, rn / bn)
@@ -290,13 +300,16 @@ class RefinedSystem:
             cycles = cycle + 1
             # unit-norm RHS: the inner (absolute) tolerance is the same
             # in every cycle
-            dX, info = self.system.solve_chunked_packed(
-                bX, tol=inner_tol, max_iter=inner_max_iter, every=every)
+            with span("refine.inner"):
+                dX, info = self.system.solve_chunked_packed(
+                    bX, tol=inner_tol, max_iter=inner_max_iter, every=every)
             inner_total += int(info.iterations)
             u64f = u64f + rn * self.plan.unpack_flat(dX, torch.float64)
         else:
-            rn_t, _ = self._resid(u64f, b32f)
-            hist.append(float(rn_t))
+            with span("refine.residual"):
+                rn_t, _ = self._resid(u64f, b32f)
+                hist.append(float(rn_t))
+            count("host_syncs")
         rn = hist[-1]
         return u64f, RefineInfo(bool(rn <= tol_rel * bn), cycles,
                                 inner_total, rn, rn / bn, np.asarray(hist))

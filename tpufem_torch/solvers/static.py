@@ -35,6 +35,7 @@ from ..elements import solid as solid_mod
 from ..elements.tables import SHELL_TYPES, SOLID_TYPES
 from ..ops.operator import MatrixFreeOperator
 from ..ops.scatter import ScatterPlan
+from ..utils.profiling import span, spanned
 from .cg import cg
 from .constraints import Constraints
 
@@ -88,6 +89,7 @@ def _check_blocks(blocks: Dict, operator: str) -> None:
             raise ValueError(f"Unsupported element type: {et}")
 
 
+@spanned("static.build")
 def build_static_model(coords, blocks: Dict[str, np.ndarray], material: dict,
                        dtype=None, operator: str = "assembled", device=None,
                        timings: Optional[dict] = None) -> StaticModel:
@@ -97,7 +99,8 @@ def build_static_model(coords, blocks: Dict[str, np.ndarray], material: dict,
     SHELL_TYPES; material: {'E', 'nu'} for solids, {'membrane', 'bending'}
     ((E, nu, t) triples) for shells; device=None means the CUDA card.
     timings, when given, gets the seconds of each stage ("stiffness",
-    "plans", "operator"), each ending in a device synchronise."""
+    "plans", "operator"), each ending in a device synchronise; each is
+    also a span (static.stiffness, static.plans, static.operator)."""
     _check_blocks(blocks, operator)
     if operator == "packed":
         raise ValueError("operator='packed' has no assembled model: "
@@ -125,37 +128,45 @@ def build_static_model(coords, blocks: Dict[str, np.ndarray], material: dict,
         t0 = time.perf_counter()
         if et in SOLID_TYPES and operator == "partial":
             from ..ops.partial import PartialAssemblyOperator
-            plan = ScatterPlan.build(conn_np, N, 3, device=dev)
-            t0 = tick("plans", t0)
-            ops.append(PartialAssemblyOperator.build(
-                coords_t, conn_np, et, material["E"], material["nu"],
-                plan=plan, affine=False))
-            tick("operator", t0)
+            with span("static.plans"):
+                plan = ScatterPlan.build(conn_np, N, 3, device=dev)
+                t0 = tick("plans", t0)
+            with span("static.operator"):
+                ops.append(PartialAssemblyOperator.build(
+                    coords_t, conn_np, et, material["E"], material["nu"],
+                    plan=plan, affine=False))
+                tick("operator", t0)
             continue
-        if et in SHELL_TYPES:
-            K = shell_mod.shell_stiffness(coords_t, conn_t,
-                                          material["membrane"],
-                                          material["bending"])
-            unit = shell_mod.local_frames(coords_t, conn_t)
-        else:
-            K = solid_mod.stiffness(coords_t, conn_t, et, material["E"],
-                                    material["nu"])
-        t0 = tick("stiffness", t0)
-        if et in SHELL_TYPES:
-            plan = ScatterPlan.build(conn_np, N, 6, device=dev)
+        with span("static.stiffness"):
+            if et in SHELL_TYPES:
+                K = shell_mod.shell_stiffness(coords_t, conn_t,
+                                              material["membrane"],
+                                              material["bending"])
+                unit = shell_mod.local_frames(coords_t, conn_t)
+            else:
+                K = solid_mod.stiffness(coords_t, conn_t, et, material["E"],
+                                        material["nu"])
+            t0 = tick("stiffness", t0)
+        with span("static.plans"):
+            if et in SHELL_TYPES:
+                plan = ScatterPlan.build(conn_np, N, 6, device=dev)
+            elif operator == "clustered":
+                from ..ops.clustered import ClusterPlan
+                plan = ClusterPlan.build(conn_np, N, 3, device=dev)
+            else:
+                plan = ScatterPlan.build(conn_np, N, 3, device=dev)
             t0 = tick("plans", t0)
-            shells.append(shell_mod.ShellOperator(K, unit, plan))
-        elif operator == "clustered":
-            from ..ops.clustered import ClusterPlan, ClusteredOperator
-            plan = ClusterPlan.build(conn_np, N, 3, device=dev)
-            t0 = tick("plans", t0)
-            ops.append(ClusteredOperator.build(K, conn_np, N, 3, plan=plan))
-        else:
-            plan = ScatterPlan.build(conn_np, N, 3, device=dev)
-            t0 = tick("plans", t0)
-            ops.append(MatrixFreeOperator(K, plan))
-        del K
-        tick("operator", t0)
+        with span("static.operator"):
+            if et in SHELL_TYPES:
+                shells.append(shell_mod.ShellOperator(K, unit, plan))
+            elif operator == "clustered":
+                from ..ops.clustered import ClusteredOperator
+                ops.append(ClusteredOperator.build(K, conn_np, N, 3,
+                                                   plan=plan))
+            else:
+                ops.append(MatrixFreeOperator(K, plan))
+            del K
+            tick("operator", t0)
     if timings is not None:
         timings.update(t)
     return StaticModel(ops, shells)

@@ -9,15 +9,35 @@ section 5).  Here:
 * :class:`Roofline` — nnz/s, elements/s, GB/s counters for kernels.
 * :func:`trace` — context manager around torch.profiler that writes a
   Chrome trace.
+* :func:`span`, :func:`spanned` — the program's spans
+  (``tpufem_torch.<layer>.<what>``) at its layer boundaries, and
+  :func:`count` / :func:`counters` — its counters; :func:`recording`
+  keeps the spans and the counters' changes in memory.
+
+Tracing is off unless a :func:`recording` is open or torch's profiler is
+on (``trace``, or any ``torch.profiler.profile``).  While it is off,
+``span`` returns one shared no-op context.
+While the profiler is on, each span is also a ``record_function``, so it
+lies in the profiler's trace on the trace's own clock.  A recording keeps
+each span as (name, id, parent id, start ns, end ns) with the start and
+end read from ``time.time_ns()``: the epoch clock in which the profiler's
+events are stamped, within the time that entering a ``record_function``
+takes.  Counters are plain integers, always on; no span or counter
+synchronises the device, allocates on it or launches anything, and none
+belongs inside a captured CUDA graph body (it would run once, at the
+capture).  The state is the process's: the program's host paths run on
+one thread.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import itertools
 import os
 import tempfile
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -106,3 +126,113 @@ def trace(logdir: Optional[str] = None):
     path = os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json")
     prof.export_chrome_trace(path)
     prof.trace_path = path
+
+
+# -- spans and counters -------------------------------------------------------
+
+PREFIX = "tpufem_torch."
+# (name, id, parent id or None, start ns, end ns)
+SpanRecord = Tuple[str, int, Optional[int], int, int]
+
+
+class Recording:
+    """What one `recording()` block saw: `spans`, each span that began and
+    ended inside it (SpanRecord, in the order they ended), and `counts`,
+    each counter's change over the block (the counters that changed;
+    filled when the block ends)."""
+
+    def __init__(self):
+        self.spans: List[SpanRecord] = []
+        self.counts: Dict[str, int] = {}
+        self._before = counters()
+
+
+_REC: Optional[Recording] = None      # the open recording
+_STACK: List[int] = []                # the ids of the open spans
+_IDS = itertools.count(1)
+_COUNTS: Dict[str, int] = {}
+_OFF = contextlib.nullcontext()
+
+
+def _tracing() -> bool:
+    return _REC is not None or torch.autograd._profiler_enabled()
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "t0", "rf", "rec")
+
+    def __init__(self, name: str):
+        self.name = PREFIX + name
+
+    def __enter__(self):
+        self.parent = _STACK[-1] if _STACK else None
+        self.id = next(_IDS)
+        self.rec = _REC
+        self.rf = None
+        if torch.autograd._profiler_enabled():
+            self.rf = torch.profiler.record_function(self.name)
+            self.t0 = time.time_ns()
+            self.rf.__enter__()
+        else:
+            self.t0 = time.time_ns()
+        _STACK.append(self.id)
+        return self
+
+    def __exit__(self, *exc):
+        _STACK.pop()
+        t1 = time.time_ns()
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+        if self.rec is not None and self.rec is _REC:
+            self.rec.spans.append((self.name, self.id, self.parent, self.t0,
+                                   t1))
+
+
+def span(name: str):
+    """A context manager that spans `name` (recorded as
+    ``tpufem_torch.<name>``) while tracing is on, and the shared no-op
+    context while it is off."""
+    return _Span(name) if _tracing() else _OFF
+
+
+def spanned(name: str):
+    """Decorator: each call of the function runs inside span(name)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to counter `name`."""
+    _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of every counter, and ``launches.<kernel>`` for each
+    hand-written kernel (its launch count, graph replays included, read
+    from ops.cuda's registry)."""
+    from ..ops.cuda import REGISTRY
+    out = dict(_COUNTS)
+    out.update((f"launches.{k.name}", k.launches) for k in REGISTRY)
+    return out
+
+
+@contextlib.contextmanager
+def recording():
+    """Keep the spans and the counters' changes of the block in memory:
+    yields a Recording.  One recording is open at a time."""
+    global _REC
+    if _REC is not None:
+        raise RuntimeError("a recording is already open")
+    rec = _REC = Recording()
+    try:
+        yield rec
+    finally:
+        _REC = None
+        after = counters()
+        rec.counts = {k: v - rec._before.get(k, 0) for k, v in after.items()
+                      if v != rec._before.get(k, 0)}
