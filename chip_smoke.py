@@ -47,7 +47,9 @@ printed):
      relative residual is <= 1e-6, the tip deflection is finite and
      negative, every kernel launched, and fused_yc and combine were
      launched by graph replays (each replay adds the launches its capture
-     recorded);
+     recorded); prints the counters cg.blocks, cg.fused_blocks and the
+     cg kernels' launches, and fails unless every block ran cg's fused
+     step (cg_pap, cg_update_r, cg_update_p once each an iteration slot);
   6. the operator-apply time (median of >= 20 applies) and each kernel's
      launches per apply; the f32 kernel operator against the independent
      f64 operator on the whole mesh, and the f64 operator's time;
@@ -55,7 +57,14 @@ printed):
      graphs, and the same window with the blocks run eagerly (device time
      per iteration by kernel, the device's busy share of the wall time,
      the median host clock of five unprofiled windows, and host over
-     device for both),
+     device for both); cg's fused graphed loop against the unfused body
+     (the same system, M^-1 as a callable), f32 and then f64 (an f64
+     system on the same plan), profiler windows in turns (fused, unfused,
+     unfused, fused): device ms an iteration by kernel and `other`; the
+     three cg kernels against their plain versions at the mesh's size
+     (bitwise over a running, a NOT_SPD and a stopped step, f32 and f64),
+     each one's device ms a launch, plain ms and bound (their rows in the
+     JSON line, f64 beside);
      then each kernel's device time per sweep, the "ms" of the JSON line;
      K1's sweep against the K4 expand + K3 compress_gather sweeps on the
      same tables, six profiler windows each taken in turns (min, median,
@@ -669,8 +678,10 @@ def packed_phase(args, dev):
     top = tt.meshgen.boundary_nodes(coords, 2, 1.0)
     b = np.zeros((N, 3), np.float32)
     b[top, 2] = -1e3
-    for K in tt.PACKED_KERNELS:
+    for K in tt.PACKED_KERNELS + tt.SOLVER_KERNELS:
         K.launches = K.replayed = 0
+    from tpufem_torch.utils import profiling
+    counts0 = profiling.counters()
     t0 = time.perf_counter()
     system = tt.PackedSystem(op, fixed_nodes=fixed, precondition="jacobi")
     ref = tt.RefinedSystem(system, coords, conn, "c3d10", E, NU)
@@ -705,6 +716,21 @@ def packed_phase(args, dev):
     for name in ("fused_yc", "combine"):
         if replayed[name] <= 0:
             fail(f"kernel {name} was not launched by a CUDA graph replay")
+    # cg's fused step: one launch of each kernel an iteration of a block
+    counts = {k: v - counts0.get(k, 0)
+              for k, v in profiling.counters().items()
+              if k in ("cg.blocks", "cg.fused_blocks", "host_syncs")
+              or k.startswith("launches.cg_")}
+    cg_launches = {K.name: K.launches for K in tt.SOLVER_KERNELS}
+    log(f"counters (main path): {counts}; cg kernels' launches an inner "
+        f"iteration {cg_launches['cg_pap'] / info.inner_iterations:.4f} "
+        f"(a block that stops early still runs its graph to the end)")
+    if (counts.get("cg.fused_blocks", 0) != counts["cg.blocks"]
+            or len(set(cg_launches.values())) != 1
+            or not cg_launches["cg_pap"] >= info.inner_iterations):
+        fail(f"the fused step did not run every block once an iteration: "
+             f"{counts}")
+    launches.update(cg_launches)
 
     # 6. apply time, launches per apply, kernel operator vs f64 operator
     X0 = plan.pack_flat(u.to(torch.float32))
@@ -775,6 +801,16 @@ def packed_phase(args, dev):
         f"device {dg:.4f} (host/device {hg / dg:.3f}); eager host "
         f"{he:.4f}, device {de:.4f} (host/device {he / de:.3f})")
     del eager
+    # cg's fused step against the unfused body, f32 and f64, in turns
+    turns_pcg = {"float32": fused_turns(system, bX, iters)}
+    op64 = tt.PackedPartialOperator(plan, op.Jinv.double(), op.W.double(),
+                                    op.dN, *op.lam_mu)
+    system64 = tt.PackedSystem(op64, fixed_nodes=fixed,
+                               precondition="jacobi")
+    turns_pcg["float64"] = fused_turns(system64, bX.double(), iters)
+    del system64, op64
+    cg_rows = cg_update_rows(dev, m.n_blocks * 384, args.reps, launches,
+                             turns_pcg)
     kernel_ms = {}
     for K in tt.PACKED_KERNELS[2:]:        # K1, K2: in turns below
         rows_k = device_times(sweep(K.name), args.reps)
@@ -868,7 +904,165 @@ def packed_phase(args, dev):
             rows[-1].update(ms_min=k2[0], ms_max=k2[2], library_min=k2lib[0],
                             library_max=k2lib[2])
     ctx = dict(coords=coords, conn=conn, plan=plan, op=op)
-    return rows, tip, ctx
+    return rows + cg_rows, tip, ctx
+
+
+def fused_turns(system, bX, iters: int):
+    """cg's fused graphed loop (the system's own block: kernels cg_pap,
+    cg_update_r, cg_update_p) against the unfused body (the same M^-1 as
+    a callable, also graphed), `iters` iterations from a cold start a
+    window, tol 0; torch.profiler windows in turns (fused, unfused,
+    unfused, fused).  Returns {label: [(host ms an iteration (median of
+    five unprofiled windows), device ms an iteration, {kernel: device ms
+    an iteration, "other": the rest})]}."""
+    import tpufem_torch as tt
+    from tpufem_torch.solvers.cg import CGBlock
+    bX = system.pc.project_residual(bX / torch.linalg.norm(bX))
+    minv = system.M_inv
+    fused = system._block(0.0, None)
+    unfused = CGBlock(system.op, bX, constraints=system.pc,
+                      M_inv=lambda r: r * minv, tol=0.0)
+    if fused.fused is None or unfused.fused is not None:
+        fail("the fused step engages where it should not, or not where it "
+             "should")
+    fns = {"fused": lambda: fused.solve(bX, max_iter=iters),
+           "unfused": lambda: unfused.solve(bX, max_iter=iters)}
+    names = [K.name for K in tt.PACKED_KERNELS + tt.SOLVER_KERNELS]
+    out = {k: [] for k in fns}
+    dt = str(bX.dtype)[6:]
+    for label in ("fused", "unfused", "unfused", "fused"):
+        fn = fns[label]
+        fn()
+        wall = statistics.median(host_windows(fn)) / iters
+        prof = device_times(fn, 1)
+        if not prof:
+            fail(f"torch.profiler recorded no device time ({label})")
+        dev_ms = sum(r[1] for r in prof) / iters
+        by = {k: sum(r[1] for r in prof if f"{k}_kernel" in r[0]) / iters
+              for k in names}
+        by = {k: round(v, 4) for k, v in by.items() if v > 0}
+        by["other"] = round(dev_ms - sum(by.values()), 4)
+        out[label].append((wall, dev_ms, by))
+        log(f"PCG {dt} {label}: {iters} iterations, host {wall:.4f} ms an "
+            f"iteration, device {dev_ms:.4f} ms an iteration (busy "
+            f"{dev_ms / wall:.1%}); by kernel {by}")
+    f, u = (statistics.mean(x[1] for x in out[k]) for k in ("fused",
+                                                           "unfused"))
+    log(f"PCG {dt}: fused {f:.4f} against unfused {u:.4f} device ms an "
+        f"iteration (mean of two windows each, in turns): {f / u:.3f}")
+    if not f < u:
+        log(f"PCG {dt}: the fused step is NOT faster than the body")
+    del fused, unfused
+    return out
+
+
+def cg_update_rows(dev, n: int, reps: int, launches, turns_pcg):
+    """Kernels cg_pap, cg_update_r and cg_update_p at the main path's size
+    (n values, f32 and f64): bitwise against their plain versions over
+    three iterations of seeded state (one a step with negative curvature,
+    one a stopped step), then each kernel's device ms a launch
+    (torch.profiler, `reps` launches, status and flags reset before each),
+    its plain version's ms (CUDA events) and its bound (the bytes it must
+    move at 3.35 TB/s).  Returns the three rows (f32; f64 beside)."""
+    import tpufem_torch as tt
+    from tpufem_torch.solvers import cg_fused as cf
+    fns = {"cg_pap": (cf.cg_pap, cf.cg_pap_plain),
+           "cg_update_r": (cf.cg_update_r, cf.cg_update_r_plain),
+           "cg_update_p": (cf.cg_update_p, cf.cg_update_p_plain)}
+    passes = {"cg_pap": 2, "cg_update_r": 8, "cg_update_p": 5}
+    res = {k: {} for k in fns}
+    for dt in (torch.float32, torch.float64):
+        g = torch.Generator(device=dev).manual_seed(0)
+
+        def rand():
+            return torch.rand(n, generator=g, dtype=dt, device=dev)
+
+        base = dict(u=rand() - 0.5, r=rand() - 0.5, p=rand() - 0.5,
+                    w=1.0 + rand(), minv=rand(), m=(rand() > 0.05).to(dt))
+        sc = dict(dtype=dt, device=dev)
+
+        def state():
+            o = {k: v.clone() for k, v in base.items()}
+            o.update(part=torch.zeros(2 * cf.grid(n, dt), **sc),
+                     ctl=torch.zeros(8, dtype=torch.int32, device=dev),
+                     status=torch.zeros((), dtype=torch.int32, device=dev),
+                     rz=torch.tensor(1.0, **sc), hlast=torch.tensor(1.0, **sc),
+                     hblock=torch.zeros(32, **sc),
+                     i=torch.zeros((), dtype=torch.int32, device=dev),
+                     scal=torch.zeros(4, **sc))
+            o["Ap"] = o["p"] * o["w"]
+            return o
+
+        def call(o, name, plain=False):
+            fn = fns[name][int(plain)]
+            if name == "cg_pap":
+                fn(o["p"], o["Ap"], o["part"], o["ctl"], o["status"],
+                   o["rz"], o["scal"], 1e-30)
+            elif name == "cg_update_r":
+                fn(o["u"], o["r"], o["p"], o["Ap"], o["minv"], o["m"],
+                   o["m"], o["part"], o["ctl"], o["status"], o["rz"],
+                   o["hlast"], o["hblock"], 0, o["i"], o["scal"], 1e-30, 0.0,
+                   True)
+            else:
+                fn(o["r"], o["p"], o["minv"], o["m"], o["ctl"], o["scal"])
+
+        got, want = state(), state()
+        for step in range(3):
+            for o in (got, want):
+                if step == 1:
+                    o["w"].neg_()          # negative curvature: NOT_SPD
+                o["Ap"] = o["p"] * o["w"]
+            for name in fns:
+                call(got, name)
+                call(want, name, plain=True)
+                torch.cuda.synchronize()
+                for k in got:
+                    if k != "part" and not torch.equal(got[k], want[k]):
+                        fail(f"{name} {dt} step {step}: {k} differs from "
+                             f"the plain version")
+        if int(got["status"]) != 3 or int(got["i"]) != 2:
+            fail(f"cg_update kernels {dt}: status {int(got['status'])} "
+                 f"after {int(got['i'])} iterations, expected NOT_SPD after 2")
+        log(f"parity cg_update {str(dt)[6:]}: cg_pap, cg_update_r, "
+            f"cg_update_p bitwise equal to their plain versions over three "
+            f"iterations of {n} values (a running step, a NOT_SPD step, a "
+            f"stopped step)")
+        o = state()
+        for name in fns:
+            def run(name=name):
+                o["status"].zero_()
+                o["ctl"][:2].fill_(1)
+                call(o, name)
+            rows_k = device_times(run, reps)
+            ms = sum(r[1] for r in rows_k if f"{name}_kernel" in r[0]) / reps
+            if not ms > 0:
+                fail(f"torch.profiler recorded no device time for {name}")
+
+            def run_plain(name=name):
+                o["status"].zero_()
+                o["ctl"][:2].fill_(1)
+                call(o, name, plain=True)
+            plain_ms = time_ms(run_plain, 3, warmup=1)
+            nbytes = passes[name] * n * base["u"].element_size()
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            res[name][str(dt)[6:]] = (ms, plain_ms, b_ms, nbytes)
+            log(f"time {name} {str(dt)[6:]}: {ms:.4f} ms a launch "
+                f"(torch.profiler, {reps} launches); bound {b_ms:.4f} ms "
+                f"({passes[name]} passes, {nbytes} bytes: {b_ms / ms:.1%}); "
+                f"plain {plain_ms:.3f} ms")
+        del got, want, o, base
+    rows = []
+    for K in tt.SOLVER_KERNELS:
+        (ms, plain_ms, b_ms, _), (ms64, plain64, b64, _) = (
+            res[K.name]["float32"], res[K.name]["float64"])
+        rows.append(dict(
+            name=K.name, route="cuda", source=f"tpufem_torch/csrc/{K.source}",
+            replaces=K.replaces, launches=launches[K.name], max_abs_err=0.0,
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes",
+            library_ms=None, f64_ms=ms64, f64_plain_ms=plain64,
+            f64_bound_ms=b64))
+    rows[0]["pcg_turns"] = turns_pcg
+    return rows
 
 
 # the other k <= 10 instantiations of K6, each on a small curved mesh

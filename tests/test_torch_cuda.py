@@ -790,7 +790,8 @@ def test_graph_launch_counts(cuda_device):
     blk.capture(32)
     assert [K.launches for K in tcu.REGISTRY] == before
     counts = {K.name: n for K, n in blk.graphs[32].counts}
-    assert counts == {"fused_yc": 32 * c_buckets, "combine": 32}
+    assert counts == {"fused_yc": 32 * c_buckets, "combine": 32,
+                      "cg_pap": 32, "cg_update_r": 32, "cg_update_p": 32}
     for reps in (1, 2, 3):
         k1, k2 = tfk.FUSED_YC.launches, tpk.COMBINE.launches
         r1 = tfk.FUSED_YC.replayed
@@ -800,6 +801,152 @@ def test_graph_launch_counts(cuda_device):
         assert tfk.FUSED_YC.launches - k1 == reps * counts["fused_yc"]
         assert tfk.FUSED_YC.replayed - r1 == reps * counts["fused_yc"]
         assert tpk.COMBINE.launches - k2 == reps * 32
+
+
+def _cg_operands(dev, dt, n, seed):
+    """Random vectors [n] and the fused step's scalars on dev: u, r, p, w
+    (Ap = w p), M^-1, the two masks, part, ctl, status, rz, hlast,
+    hblock, i, scal."""
+    from tpufem_torch.solvers import cg_fused as tcf
+    g = torch.Generator().manual_seed(seed)
+
+    def vec():
+        return torch.randn(n, generator=g, dtype=dt).to(dev)
+
+    def mask():
+        return (torch.rand(n, generator=g) > 0.1).to(dt).to(dev)
+
+    u, r, p = vec(), vec(), vec()
+    w = 1.0 + torch.rand(n, generator=g, dtype=dt).to(dev)
+    minv = torch.rand(n, generator=g, dtype=dt).to(dev)
+    ms, mr = mask(), mask()
+    sc = dict(dtype=dt, device=dev)
+    return dict(u=u, r=r, p=p, w=w, Ap=p * w, minv=minv, ms=ms, mr=mr,
+                part=torch.zeros(2 * tcf.grid(n, dt), **sc),
+                ctl=torch.zeros(8, dtype=torch.int32, device=dev),
+                status=torch.zeros((), dtype=torch.int32, device=dev),
+                rz=torch.tensor(float(n), **sc),
+                hlast=torch.tensor(7.0, **sc),
+                hblock=torch.full((32,), -1.0, **sc),
+                i=torch.full((), 5, dtype=torch.int32, device=dev),
+                scal=torch.zeros(4, **sc))
+
+
+def _cg_step(o, fns, j, record, one_mask):
+    cg_pap, cg_update_r, cg_update_p = fns
+    mr = o["ms"] if one_mask else o["mr"]
+    o["Ap"] = o["p"] * o["w"]
+    cg_pap(o["p"], o["Ap"], o["part"], o["ctl"], o["status"], o["rz"],
+           o["scal"], 1e-30)
+    cg_update_r(o["u"], o["r"], o["p"], o["Ap"], o["minv"], o["ms"], mr,
+                o["part"], o["ctl"], o["status"], o["rz"], o["hlast"],
+                o["hblock"], j, o["i"], o["scal"], 1e-30, 1e-3, record)
+    cg_update_p(o["r"], o["p"], o["minv"], mr, o["ctl"], o["scal"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ["running", "two_masks", "no_record",
+                                  "not_spd", "stopped", "converges"])
+def test_cg_update_kernels_bitwise_vs_plain(cuda_device, dt, case):
+    """cg_pap, cg_update_r and cg_update_p against their plain versions on
+    the card, kernel by kernel and over three iterations: every vector,
+    scalar, flag and history entry bitwise, on a ragged size (the last
+    tile part full): a running step (one mask tensor or two, with and
+    without the history), a step with negative curvature (dropped:
+    NOT_SPD), a stopped block (nothing moves but hlast and hblock) and a
+    step that converges."""
+    from tpufem_torch.solvers import cg_fused as tcf
+    n = 384 * 37 + 4
+    kern = (tcf.cg_pap, tcf.cg_update_r, tcf.cg_update_p)
+    plain = (tcf.cg_pap_plain, tcf.cg_update_r_plain, tcf.cg_update_p_plain)
+    got, want = (_cg_operands(cuda_device, dt, n, 7) for _ in range(2))
+    for o in (got, want):
+        if case == "not_spd":
+            o["w"].neg_()
+        if case == "stopped":
+            o["status"].fill_(1)
+        if case == "converges":
+            o["r"].mul_(1e-6)
+            o["rz"].fill_(1e-14)
+    launches = [K.launches for K in tpufem_torch.SOLVER_KERNELS]
+    for j in range(3):
+        kw = dict(j=j, record=case != "no_record",
+                  one_mask=case != "two_masks")
+        _cg_step(got, kern, **kw)
+        _cg_step(want, plain, **kw)
+        torch.cuda.synchronize()
+        for k in got:
+            if k != "part":
+                assert torch.equal(got[k], want[k]), (j, k)
+    assert [K.launches for K in tpufem_torch.SOLVER_KERNELS] == [
+        x + 3 for x in launches]
+    status = int(got["status"])
+    assert status == {"not_spd": 3, "stopped": 1, "converges": 1}.get(
+        case, 0)
+    assert int(got["i"]) == 5 + {"stopped": 0, "not_spd": 1,
+                                 "converges": 1}.get(case, 3)
+
+
+def _fused_pair(dev, dt, tol):
+    """box_tet10(8) f32 or f64, the base fixed, Jacobi: the system's
+    (fused) CGBlock and an unfused one (the same M^-1 as a callable), and
+    a unit-norm load."""
+    from tpufem_torch.solvers.cg import CGBlock
+    mg = tpufem_torch.meshgen
+    coords, conn = mg.box_tet10(8, 8, 8)
+    N = coords.shape[0]
+    op = tpufem_torch.PackedPartialOperator.build(
+        coords, conn, "c3d10", E, NU, n_nodes=N, dtype=dt, device=dev)
+    system = tpufem_torch.PackedSystem(
+        op, fixed_nodes=mg.boundary_nodes(coords, 2, 0.0))
+    b = np.zeros((N, 3))
+    top = mg.boundary_nodes(coords, 2, 1.0)
+    b[top, 0], b[top, 2] = 2e3, -1e3
+    bX = system.pc.project_residual(op.plan.pack(torch.as_tensor(
+        b / np.linalg.norm(b), dtype=dt, device=dev)))
+    fused = system._block(tol, None)
+    minv = system.M_inv
+    plain = CGBlock(op, bX, constraints=system.pc,
+                    M_inv=lambda r: r * minv, tol=tol)
+    return fused, plain, bX
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+def test_fused_solve_vs_body_on_card(cuda_device, dt):
+    """The graphed fused solve against the unfused body on box_tet10(8):
+    the same status, iterations within 1%, the first 50 history entries
+    and the answer within 1e-10 relative in f64 (1e-3 in f32, where the
+    dots' other order moves the recurrence more); a second fused solve
+    repeats the first bitwise; the fused blocks counted, the unfused
+    block's not."""
+    from tpufem_torch.solvers import cg_fused as tcf
+    from tpufem_torch.utils import profiling
+    tol = 1e-4 if dt == torch.float32 else 1e-9
+    fused, plain, bX = _fused_pair(cuda_device, dt, tol)
+    assert fused.fused is not None and plain.fused is None
+    c0 = profiling.counters()
+    a = fused.solve(bX, max_iter=4000, return_state=True)
+    c1 = profiling.counters()
+    b = fused.solve(bX, max_iter=4000, return_state=True)
+    want = plain.solve(bX, max_iter=4000)
+    c2 = profiling.counters()
+    _same_cg(a, b)
+    n, nw = int(a[1].iterations), int(want[1].iterations)
+    assert int(a[1].status) == int(want[1].status) == 1
+    assert abs(n - nw) <= max(1, 0.01 * nw), (n, nw)
+    blocks = -(-n // 32)
+    assert c1["cg.fused_blocks"] - c0.get("cg.fused_blocks", 0) == blocks
+    assert c2["cg.fused_blocks"] == c1["cg.fused_blocks"] + blocks
+    for K in tpufem_torch.SOLVER_KERNELS:
+        assert c1[f"launches.{K.name}"] - c0[f"launches.{K.name}"] == \
+            32 * blocks
+    rtol = 1e-10 if dt == torch.float64 else 1e-3
+    h, hw = a[1].history[:50], want[1].history[:50]
+    assert float(((h - hw).abs() / hw).max()) <= rtol
+    u, uw = a[0], want[0]
+    assert float((u - uw).abs().max() / uw.abs().max()) <= rtol
 
 
 @pytest.mark.cuda

@@ -120,6 +120,8 @@ from .ops.stiffness_kernels import STIFFNESS_FUSED, stiffness_fused  # noqa: E40
 from .solvers import legacy, modal  # noqa: E402
 from .solvers.bicgstab import bicgstab  # noqa: E402
 from .solvers.cg import SolveInfo, cg, comp_vdot, masked_cg  # noqa: E402
+from .solvers.cg_fused import (CG_PAP, CG_UPDATE_P,  # noqa: E402
+                               CG_UPDATE_R)
 from .solvers.constraints import Constraints  # noqa: E402
 from .solvers.gmres import gmres  # noqa: E402
 from .solvers.hybrid import (HybridSystem, build_hybrid,  # noqa: E402
@@ -155,11 +157,16 @@ STAGED_KERNELS = (EXPAND, EXPAND_PLANAR, COMPRESS_PLANAR)
 # the CUDA kernels of the three probes
 PROBE_KERNELS = (RELAYOUT_FWD, RELAYOUT_INV, ROW_ACCUMULATE, PLANAR_WRITE,
                  PLANAR_READ)
+# the CUDA kernels of cg's fused iteration (solvers.cg_fused), in launch
+# order
+SOLVER_KERNELS = (CG_PAP, CG_UPDATE_R, CG_UPDATE_P)
 # every CUDA kernel of the package
-KERNELS = PACKED_KERNELS + STATIC_KERNELS + STAGED_KERNELS + PROBE_KERNELS
+KERNELS = (PACKED_KERNELS + STATIC_KERNELS + STAGED_KERNELS + PROBE_KERNELS
+           + SOLVER_KERNELS)
 
 __all__ = [
-    "BSRMatrix", "BSRStructure", "BlockJacobi", "CLUSTER_COMPRESS",
+    "BSRMatrix", "BSRStructure", "BlockJacobi", "CG_PAP", "CG_UPDATE_P",
+    "CG_UPDATE_R", "CLUSTER_COMPRESS",
     "CLUSTER_EXPAND", "COMBINE", "COMPRESS_GATHER", "COMPRESS_PLANAR",
     "ClusterPlan", "ClusteredOperator", "ClusteredPartialOperator",
     "CombinePlan", "Constraints", "DistFEM", "DistPartition", "EXPAND",
@@ -170,7 +177,8 @@ __all__ = [
     "PackedMixedOperator", "PackedMixedSystem", "PackedPartialOperator",
     "PackedPlan", "PackedSystem", "PartMesh", "PartialAssemblyOperator",
     "RELAYOUT_FWD", "RELAYOUT_INV", "ROW_ACCUMULATE", "RefineInfo",
-    "RefinedSystem", "STAGED_KERNELS", "STATIC_KERNELS", "STIFFNESS_FUSED",
+    "RefinedSystem", "SOLVER_KERNELS", "STAGED_KERNELS", "STATIC_KERNELS",
+    "STIFFNESS_FUSED",
     "ScatterPlan", "ShellOperator", "SolveInfo", "StaticModel",
     "assemble_bsr", "assemble_dense", "assembly", "bicgstab",
     "block_apply", "block_operator", "bsr_matvec", "build_bsr_structure",

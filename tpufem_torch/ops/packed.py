@@ -1187,6 +1187,13 @@ class PackedConstraints:
     def project_residual(self, r: torch.Tensor) -> torch.Tensor:
         return r * self.mask.to(r.dtype)
 
+    def masks(self):
+        """(m_state, m_res) when both projections are the mask alone (no
+        SPC value, no RBE2/RBE3 set), else None (solvers.cg_fused)."""
+        if self.spc_const is not None or self.has_sets:
+            return None
+        return self.mask, self.mask
+
 
 # ---------------------------------------------------------------------------
 # packed PCG system

@@ -17,6 +17,13 @@ CPU the same block function runs eagerly.  A capture that fails raises.
 GraphedBlock holds that capture-and-replay machinery for every solver
 whose loop body runs this way (cg, bicgstab, gmres).
 
+On the card a CGBlock whose M_inv is a tensor and whose constraints are a
+pure mask (``solvers.cg_fused.pure_masks``) runs each iteration as A(p)
+and three hand-written kernels (solvers.cg_fused, csrc/cg_update.cu) in
+place of the body's torch operations: the same updates and status rules,
+the dots summed in the kernels' fixed order.  Every other configuration,
+and every block on the CPU, runs the body below.
+
 dot_dtype="compensated" takes each dot product by comp_vdot (Dekker's
 two-product and a two-sum cascade over contiguous halves, in b's dtype:
 about twice its precision); masked_cg is cg with a 0/1 mask as its
@@ -190,9 +197,19 @@ class CGBlock(GraphedBlock):
         self.project(like)
         self.set_state(like)
         self.state = CGState(like)
+        # on the card, a pure-mask configuration takes the fused step
+        # (solvers.cg_fused): three kernels an iteration besides A(p)
+        self.fused = None
+        if self.graphed:
+            from .cg_fused import FusedStep, pure_masks
+            masks = pure_masks(self)
+            if masks is not None:
+                self.fused = FusedStep(self, masks)
 
     def run(self, n: int) -> None:
         count("cg.blocks")
+        if self.fused is not None:
+            count("cg.fused_blocks")
         super().run(n)
 
     def vdot(self, a, c):
@@ -203,6 +220,10 @@ class CGBlock(GraphedBlock):
     def body(self, n: int) -> None:
         """n iterations of the loop on the state, in place."""
         st = self.state
+        if self.fused is not None:
+            for j in range(n):
+                self.fused.step(st, self.A(st.p), j)
+            return
         A, project, set_state, apply_M, vdot = (
             self.A, self.project, self.set_state, self.apply_M, self.vdot)
         tol, eps = self.tol, self.eps
@@ -353,6 +374,10 @@ class _MaskConstraint:
 
     def apply_state(self, u):
         return u * self.mask
+
+    def masks(self):
+        """(m_state, m_res): this is a pure mask (solvers.cg_fused)."""
+        return self.mask, self.mask
 
 
 def masked_cg(A: Callable, b: torch.Tensor, mask, **kw):
