@@ -9,7 +9,9 @@ judgement and the result line.
              the traffic's accuracy, in the traffic's order, until
              --seconds have passed; the solve in flight is finished, so
              the window ends at the end of a whole solve.  With --trace 1
-             the window's first solve runs under the profiler
+             the window's first solve runs under the profiler and inside
+             the program's recording (tpufem_torch.utils.profiling), which
+             keeps its spans and its counters' changes for the metrics
     after    read the device's peak memory; check that no JAX module is
              loaded; with --trace 1 time the operator's apply under the
              profiler; take the path's diagonal; free the program's state;
@@ -87,11 +89,15 @@ class Context:
     setup_s: float
     stages: dict
     window_s: float
-    solves: list                # [{"case", "sign", "iterations", ...}]
+    solves: list                # [{"case", "sign", "iterations", "detail",
+                                #   ...}]
     peak_bytes: int
     trace: Optional[tracemod.Window] = None
     traced_iterations: int = 0
     apply_s: Optional[float] = None
+    # the program's recording of the traced solve (--trace 1 only): its
+    # `spans` and `counts` (each counter's change over the solve)
+    recording: Optional[object] = None
 
 
 def _metrics(entries, ctx):
@@ -150,14 +156,15 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
 
     # the measured window
     solves, answers = [], []
-    prof = None
+    prof = rec = None
     tw = time.perf_counter()
     i = 0
     while True:
         name, sign, b = loads.case(i)
         ts = time.perf_counter()
         if trace and i == 0:
-            with tracemod.profile() as prof:
+            from tpufem_torch.utils import profiling
+            with tracemod.profile() as prof, profiling.recording() as rec:
                 with torch.profiler.record_function("portbench.traced"):
                     u, conv, iters, detail = path.solve(b)
                     sync()
@@ -165,7 +172,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             u, conv, iters, detail = path.solve(b)
         te = time.perf_counter()
         solves.append(dict(case=name, sign=sign, iterations=iters,
-                           converged=conv, seconds=te - ts))
+                           converged=conv, seconds=te - ts, detail=detail))
         answers.append((b, u))
         log(f"solve {i}: {name} {'+-'[sign < 0]} iterations {iters} "
             f"converged {conv} {te - ts:.4f} s {detail}")
@@ -182,7 +189,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
 
     ctx = Context(config=cfg, operator=pm.OPERATOR, dtype=pm.DTYPE,
                   setup_s=setup_s, stages=dict(stages.times),
-                  window_s=window_s, solves=solves, peak_bytes=peak)
+                  window_s=window_s, solves=solves, peak_bytes=peak,
+                  recording=rec)
     if trace:
         t = time.perf_counter()
         ctx.trace = tracemod.window(prof)
@@ -211,9 +219,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         torch.cuda.empty_cache()
 
     t_j = time.perf_counter()
-    nums, resid = judgemod.judge(coords, conn, fixed, cfg["material"],
-                                 answers, diag, tr["tol_rel"],
-                                 pm.DIAG_LIMIT, dev)
+    nums, resid = judgemod.judge(coords, conn, fixed, cfg["element"],
+                                 cfg["material"], answers, diag,
+                                 tr["tol_rel"], pm.DIAG_LIMIT, dev)
     for k, r in enumerate(resid):
         log(f"reference: solve {k} relative residual {r!r}")
     log(f"reference judged {len(answers)} answers in "

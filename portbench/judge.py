@@ -3,9 +3,11 @@ produced.
 
 Once the window has closed and the program's state is freed, the float64
 reference (portbench.reference) is built from the benchmark's own arrays
-(coordinates, connectivity, material, fixed nodes) and judges every answer
-that the window delivered, converged or not, and the diagonal that the
-path's set-up derived.  The numbers compared, each with its limit:
+(coordinates, connectivity, material, fixed nodes) on the element that
+the configuration names (``portbench/reference/elements/<type>.py``) and
+judges every answer that the window delivered, converged or not, and the
+diagonal that the path's set-up derived.  The numbers compared, each with
+its limit:
 
 * ``resid_max``: the largest ||P (b - K u)|| / ||P b|| of the window's
   answers, K the reference's operator and P the free-DOF projection; the
@@ -38,12 +40,17 @@ class Number:
         return self.limit is None or self.value <= self.limit
 
 
-def judge(coords, conn, fixed, material: dict, answers, diag,
-          tol_rel: float, diag_limit, device):
-    """answers: [(b, u)] of [N, 3] float64 arrays.  Returns (numbers,
-    per-answer relative residuals)."""
-    op = ref.Elasticity(coords, conn, material["E"], material["nu"],
-                        device=device)
+def judge(coords, conn, fixed, element: dict, material: dict, answers,
+          diag, tol_rel: float, diag_limit, device):
+    """answers: [(b, u)] of [N, 3] float64 arrays; element: the
+    configuration's "element" entry.  Returns (numbers, per-answer relative
+    residuals)."""
+    op = ref.Elasticity(coords, conn, element["type"], material["E"],
+                        material["nu"], device=device)
+    if tuple(op.dN.shape[:2]) != (element["points"], element["nodes"]):
+        raise ValueError(f"the reference's {element['type']} has "
+                         f"{op.dN.shape[0]} points and {op.dN.shape[1]} "
+                         f"nodes; the configuration says {element}")
     free = ref.free_mask(coords.shape[0], fixed, device=device)
     resid = [ref.relative_residual(op, u, b, free) for b, u in answers]
     fixed_abs = [float(np.abs(u[fixed]).max()) if len(fixed) else 0.0

@@ -1,20 +1,19 @@
-"""The benchmark's meshes: a frozen numpy copy of the box generators.
+"""The benchmark's meshes: a configuration's mesh made by its generator
+(``portbench/meshes/<generator>.py``, found by name), the structured boxes
+that the generators share, and the plane selector that picks the nodes of
+a face.
 
-Structured hexahedral boxes split into six Kuhn tetrahedra each, promoted
-to quadratic c3d10 tetrahedra by one node at the middle of every edge,
-and the plane selector that picks the nodes of a face.  The arithmetic is
-that of tpufem's ``utils.meshgen`` (``box_hex``, ``box_tet``,
-``tet4_to_tet10``, ``boundary_nodes``), copied here so that a later change
-to the program cannot move the benchmark's inputs; the unique edge list is
-``np.unique`` on one int64 key per edge, which orders edges as the
-program's radix sort does.  Host numpy only: nothing here imports torch or
-the program.
+Structured hexahedral boxes split into six Kuhn tetrahedra each.  The
+arithmetic is that of tpufem's ``utils.meshgen`` (``box_hex``,
+``box_tet``, ``boundary_nodes``), copied here so that a later change to
+the program cannot move the benchmark's inputs.  Host numpy only: nothing
+here imports torch or the program.
 """
 from __future__ import annotations
 
-import numpy as np
+import importlib
 
-GENERATORS = ("box_tet10",)
+import numpy as np
 
 
 def box_hex(nx: int, ny: int, nz: int, lx=1.0, ly=1.0, lz=1.0):
@@ -43,7 +42,6 @@ _KUHN_TETS = np.array([
     [0, 1, 2, 6], [0, 2, 3, 6], [0, 3, 7, 6],
     [0, 7, 4, 6], [0, 4, 5, 6], [0, 5, 1, 6],
 ])
-_TET_EDGES = np.array([[0, 1], [1, 2], [2, 0], [0, 3], [1, 3], [2, 3]])
 
 
 def box_tet(nx: int, ny: int, nz: int, lx=1.0, ly=1.0, lz=1.0):
@@ -58,40 +56,18 @@ def box_tet(nx: int, ny: int, nz: int, lx=1.0, ly=1.0, lz=1.0):
     return coords, tets.astype(np.int32)
 
 
-def tet4_to_tet10(coords, conn):
-    """c3d4 -> c3d10: edge nodes on edges 01, 12, 20, 03, 13, 23, one new
-    node per unique edge, appended in the order of the sorted edge keys."""
-    M = conn.shape[0]
-    edges = np.sort(conn[:, _TET_EDGES].reshape(-1, 2), axis=1)
-    base = coords.shape[0]
-    key = edges[:, 0].astype(np.int64) * np.int64(base) + edges[:, 1]
-    uniq_key, inv = np.unique(key, return_inverse=True)
-    a, b = uniq_key // base, uniq_key % base
-    new_coords = np.concatenate([coords, 0.5 * (coords[a] + coords[b])],
-                                axis=0)
-    mid = (base + inv.reshape(-1)).reshape(M, 6)
-    return new_coords, np.concatenate([conn, mid], axis=1).astype(np.int32)
-
-
-def box_tet10(nx, ny, nz, lx=1.0, ly=1.0, lz=1.0):
-    return tet4_to_tet10(*box_tet(nx, ny, nz, lx, ly, lz))
-
-
 def boundary_nodes(coords, axis: int = 0, value: float = 0.0, tol=1e-9):
     """Ids of the nodes on the plane coords[:, axis] == value."""
     return np.nonzero(np.abs(coords[:, axis] - value) < tol)[0].astype(
         np.int32)
 
 
-def sizes(n) -> tuple:
-    """(elements, nodes) of box_tet10(*n), from the counts alone: every
-    point of the half-step lattice is a corner or the middle of an edge."""
-    nx, ny, nz = n
-    return 6 * nx * ny * nz, (2 * nx + 1) * (2 * ny + 1) * (2 * nz + 1)
+def generator(name: str):
+    """The module ``portbench.meshes.<name>`` (see portbench.meshes)."""
+    return importlib.import_module("portbench.meshes." + name)
 
 
 def make(mesh: dict):
-    """(coords, conn) of a configuration's "mesh" entry."""
-    if mesh["generator"] not in GENERATORS:
-        raise ValueError(f"unknown mesh generator {mesh['generator']!r}")
-    return box_tet10(*mesh["n"], *mesh["size"])
+    """(coords, conn) of a configuration's "mesh" entry: its generator's
+    ``make(n, size)``."""
+    return generator(mesh["generator"]).make(mesh["n"], mesh["size"])

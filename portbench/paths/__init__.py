@@ -4,7 +4,9 @@ A path module has a ``Path`` class built by the harness as
 ``Path(mesh, config, traffic, device, stages, control)``:
 
 * ``__init__`` builds the system from the benchmark's arrays (``mesh``:
-  coords, conn, the fixed nodes), each stage inside ``stages("<name>")``,
+  coords, conn, the fixed nodes) and the configuration (its material, and
+  its ``element`` type, which it hands to the program as the mesh's
+  element), each stage inside ``stages("<name>")``,
   which synchronises the device and records the seconds; ``control=True``
   builds the program's own path one precision below the configuration's
   (the control of the correctness check, never run by a timed run);
@@ -20,8 +22,9 @@ A path module has a ``Path`` class built by the harness as
   the apply timing of a traced run;
 * ``close()`` drops the program's state.
 
-A module also names ``OPERATOR``, the operator whose apply count its
-roofline metric takes ("packed" or "assembled"), ``DTYPE`` (its working
+A module also names ``OPERATOR``, the operator whose apply its roofline
+metric times: any name that has a metric ``<OPERATOR>_apply_roofline``
+(``packed`` and ``assembled`` today), ``DTYPE`` (its working
 precision, "float32" or "float64"), and ``DIAG_LIMIT``, the largest
 relative difference of the diagonal from the reference's that counts as
 correct (None: printed, not compared).

@@ -49,6 +49,7 @@ class Path:
         from tpufem_torch.solvers.cg import CGBlock
 
         E, nu = config["material"]["E"], config["material"]["nu"]
+        etype = config["element"]["type"]
         self.dtype = torch.float32 if control else torch.float64
         self.tol = float(traffic["tol_rel"])
         self.max_iter = int(traffic["max_iter"])
@@ -56,7 +57,7 @@ class Path:
         self.device = device
         with stages("assembly"):
             self.model = tt.build_static_model(
-                mesh.coords, {"c3d10": mesh.conn}, {"E": E, "nu": nu},
+                mesh.coords, {etype: mesh.conn}, {"E": E, "nu": nu},
                 dtype=self.dtype, operator="clustered", device=device)
         with stages("system"):
             d6 = self.model.diagonal6()

@@ -30,6 +30,7 @@ class Path:
         import tpufem_torch as tt
 
         E, nu = config["material"]["E"], config["material"]["nu"]
+        etype = config["element"]["type"]
         dtype = torch.float32 if control else torch.float64
         self.tol = float(traffic["tol_rel"])
         self.max_iter = int(traffic["max_iter"])
@@ -40,7 +41,7 @@ class Path:
                                        device=device)
         with stages("operator"):
             op = tt.PackedPartialOperator.build(
-                mesh.coords, mesh.conn, "c3d10", E, nu, plan=plan,
+                mesh.coords, mesh.conn, etype, E, nu, plan=plan,
                 dtype=dtype, device=device)
         with stages("system"):
             self.system = tt.PackedSystem(op, fixed_nodes=mesh.fixed,

@@ -33,6 +33,7 @@ class Path:
         import tpufem_torch as tt
 
         E, nu = config["material"]["E"], config["material"]["nu"]
+        etype = config["element"]["type"]
         self.tol = float(traffic["tol_rel"])
         self.max_iter = int(traffic["max_iter"])
         self.control = control
@@ -43,7 +44,7 @@ class Path:
                                        device=device)
         with stages("operator"):
             op = tt.PackedPartialOperator.build(
-                mesh.coords, mesh.conn, "c3d10", E, nu, plan=plan,
+                mesh.coords, mesh.conn, etype, E, nu, plan=plan,
                 dtype=torch.float32, device=device)
         with stages("system"):
             self.system = tt.PackedSystem(op, fixed_nodes=mesh.fixed,
@@ -55,7 +56,7 @@ class Path:
             return
         with stages("refine_geometry"):
             self.refined = tt.RefinedSystem(self.system, mesh.coords,
-                                            mesh.conn, "c3d10", E, nu)
+                                            mesh.conn, etype, E, nu)
         with stages("capture"):
             self.system.warm_chunked(tol=INNER["inner_tol"],
                                      every=INNER["every"])

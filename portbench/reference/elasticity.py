@@ -1,43 +1,26 @@
 """Plain reference for the benchmark's solves: linear isotropic elasticity
-on quadratic (c3d10) tetrahedra in float64, written from the equations.
+in float64, written from the equations, on the element that a
+configuration names (its shape functions and quadrature rule from
+``portbench.reference.elements``).
 
     K u = sum_e sum_q W_q G_e^T sigma(G_e u_e)
     G   = J^-1 dN      (physical shape-function gradients at point q)
     H   = G^T u_e      (H[a, b] = du_b / dx_a)
     sigma = lam tr(H) I + mu (H + H^T),   W_q = w_q det J
 
-Quadratic tetrahedra with the corner functions L (2L - 1) and the edge
-functions 4 L_a L_b on edges 01, 12, 20, 03, 13, 23, L0 = 1 - xi - eta -
-zeta, and the four-point degree-2 rule on the reference tetrahedron
-(weights 1/24).  The geometry is worked out again from the coordinates at
-every apply, the scatter adds element forces to nodes with index_add_, and
-the element loop runs in chunks so that a million elements fit beside
-nothing else.  Imports torch and numpy only: nothing of the program.
+The geometry is worked out again from the coordinates at every apply, the
+scatter adds element forces to nodes with index_add_, and the element loop
+runs in chunks so that a million elements fit beside nothing else.
+Imports torch and numpy only: nothing of the program.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import elements
+
 F64 = torch.float64
-_A, _B = 0.5854101966249685, 0.13819660112501052
-POINTS = np.array([[_A, _B, _B], [_B, _A, _B], [_B, _B, _A], [_B, _B, _B]])
-WEIGHTS = np.full(4, 1.0 / 24.0)
-EDGES = ((0, 1), (1, 2), (2, 0), (0, 3), (1, 3), (2, 3))
-
-
-def tet10_gradients(points: np.ndarray) -> np.ndarray:
-    """[q, 10, 3] derivatives of the c3d10 shape functions in (xi, eta,
-    zeta) at `points` [q, 3]."""
-    xi, eta, zeta = points[:, 0], points[:, 1], points[:, 2]
-    L = np.stack([1 - xi - eta - zeta, xi, eta, zeta], axis=1)
-    dL = np.array([[-1., -1., -1.], [1., 0., 0.], [0., 1., 0.], [0., 0., 1.]])
-    dN = np.zeros((points.shape[0], 10, 3))
-    for i in range(4):
-        dN[:, i] = (4 * L[:, i:i + 1] - 1) * dL[i]
-    for m, (a, b) in enumerate(EDGES):
-        dN[:, 4 + m] = 4 * (L[:, a:a + 1] * dL[b] + L[:, b:b + 1] * dL[a])
-    return dN
 
 
 def lame(E: float, nu: float):
@@ -60,23 +43,25 @@ def _inverse3(J: torch.Tensor):
 
 class Elasticity:
     """The reference operator u [N, 3] -> K u [N, 3] and diag(K) [N, 3],
-    float64 on `device`, from the mesh arrays and the material."""
+    float64 on `device`, from the mesh arrays, the element type (a module
+    of portbench.reference.elements) and the material."""
 
-    def __init__(self, coords, conn, E: float, nu: float, device="cpu",
-                 chunk: int = 1 << 18):
+    def __init__(self, coords, conn, etype: str, E: float, nu: float,
+                 device="cpu", chunk: int = 1 << 18):
         dev = torch.device(device)
+        el = elements.load(etype)
+        dN = el.gradients(el.POINTS)
         self.X = torch.as_tensor(np.asarray(coords), dtype=F64, device=dev)
         self.conn = torch.as_tensor(np.asarray(conn), device=dev).long()
         self.N = self.X.shape[0]
-        self.dN = torch.as_tensor(tet10_gradients(POINTS), dtype=F64,
-                                  device=dev)
-        self.w = torch.as_tensor(WEIGHTS, dtype=F64, device=dev)
+        self.dN = torch.as_tensor(dN, dtype=F64, device=dev)
+        self.w = torch.as_tensor(el.WEIGHTS, dtype=F64, device=dev)
         self.lam, self.mu = lame(float(E), float(nu))
         self.chunk = int(chunk)
 
     def _gradients(self, cc: torch.Tensor):
-        """(G [m, q, 10, 3] physical gradients, W [m, q]) of a chunk."""
-        Xe = self.X[cc]                                      # [m, 10, 3]
+        """(G [m, q, k, 3] physical gradients, W [m, q]) of a chunk."""
+        Xe = self.X[cc]                                      # [m, k, 3]
         J = torch.einsum("qka,mkb->mqab", self.dN, Xe)        # dx_b/dxi_a
         Jinv, det = _inverse3(J)
         G = torch.einsum("mqab,qkb->mqka", Jinv, self.dN)

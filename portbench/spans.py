@@ -23,12 +23,14 @@ inside a ``portbench.traced`` span).  The first profiled solve is read:
 
 Stage lines and readings go to standard error; the last line of standard
 output is a JSON object of them.  The second prints, for each n, a JSON
-line of PackedPlan.build's stage spans at box_tet10(n, n, n).
+line of PackedPlan.build's stage spans on the mesh of the cell's
+configuration (of BENCHMARK.json's first cell without --workload) at the
+counts (n, n, n).
 
-The harness reads none of this yet: a run's metrics come from
-``portbench.run``.  Once harness.py and trace.py read the program's spans
-themselves (idle by span, the three metrics), this module and its tests
-go.
+The harness reads the program's counters of its traced solve
+(``host_syncs_per_solve``) but not yet the spans beside the trace.  Once
+harness.py and trace.py read those themselves (idle by span,
+``boundary_idle_pct``, ``refine_self_ms``), this module and its tests go.
 """
 from __future__ import annotations
 
@@ -275,13 +277,14 @@ def measure(cell: spec.Cell, seed: int, solves: int, device) -> dict:
     return out
 
 
-def plan_split(n: int, device) -> dict:
-    """PackedPlan.build's stage spans at box_tet10(n, n, n), seconds."""
+def plan_split(mesh: dict, n: int, device) -> dict:
+    """PackedPlan.build's stage spans on a configuration's "mesh" entry at
+    the counts (n, n, n), seconds."""
     import torch
     from tpufem_torch.ops.packed import PackedPlan
-    from tpufem_torch.utils import meshgen, profiling
+    from tpufem_torch.utils import profiling
 
-    coords, conn = meshgen.box_tet10(n, n, n)
+    coords, conn = meshmod.make(dict(mesh, n=[n, n, n]))
     with profiling.recording() as rec:
         t = time.perf_counter()
         PackedPlan.build(coords, conn, coords.shape[0], device=device)
@@ -298,15 +301,18 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--solves", type=int, default=3)
     ap.add_argument("--plan-sizes", type=int, nargs="*", default=[],
-                    help="also split PackedPlan.build at box_tet10(n, n, n) "
-                         "for each n (one JSON line each)")
+                    help="also split PackedPlan.build on the cell's mesh "
+                         "at the counts (n, n, n) for each n (one JSON "
+                         "line each)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         harness.log("no CUDA device: the benchmark runs on the card only")
         return 3
+    if args.plan_sizes:
+        mesh = spec.load(args.workload or spec.workloads()[0]).config["mesh"]
     for n in args.plan_sizes:
-        print(json.dumps(plan_split(n, "cuda:0")), flush=True)
+        print(json.dumps(plan_split(mesh, n, "cuda:0")), flush=True)
     if args.workload:
         out = measure(spec.load(args.workload), args.seed, args.solves,
                       "cuda:0")

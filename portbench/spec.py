@@ -1,14 +1,22 @@
 """What a cell is, read from BENCHMARK.json and the files it names.
 
 Every part of a cell is found by name, so that a later change adds a cell,
-a configuration, a traffic mix, a path or a metric by adding files and
-entries only:
+a configuration, a mesh generator, an element, a traffic mix, a path or a
+metric by adding files and entries only:
 
 * the configuration: the ``file`` of its entry in ``configs``;
+* the mesh: the generator that the configuration's ``mesh`` entry names,
+  ``portbench/meshes/<generator>.py`` (portbench.meshes);
+* the element of the reference that judges the answers: the type of the
+  configuration's ``element`` entry,
+  ``portbench/reference/elements/<type>.py``
+  (portbench.reference.elements); the paths hand the same type to the
+  program;
 * the traffic mix: ``portbench/traffic/<traffic>.json``;
 * the path that the window drives: the cell's name less its configuration's
   name and the dot after it (``tet10_box_1m.refined_f32`` runs
-  ``portbench/paths/refined_f32.py``);
+  ``portbench/paths/refined_f32.py``), whose ``OPERATOR`` is any name
+  that has a ``<OPERATOR>_apply_roofline`` metric;
 * each metric: ``portbench/metrics/<name>.py`` (a ``.`` or ``-`` in a name
   is ``_`` in its file's name).
 
@@ -48,9 +56,18 @@ def _reports(entry: dict, cell: str) -> bool:
     return "workloads" not in entry or cell in entry["workloads"]
 
 
-def load(workload: str, root: str = ROOT) -> Cell:
+def _bench(root: str) -> dict:
     with open(os.path.join(root, "BENCHMARK.json")) as f:
-        bench = json.load(f)
+        return json.load(f)
+
+
+def workloads(root: str = ROOT) -> List[str]:
+    """The names of BENCHMARK.json's cells, in its order."""
+    return [w["name"] for w in _bench(root)["workloads"]]
+
+
+def load(workload: str, root: str = ROOT) -> Cell:
+    bench = _bench(root)
     cells = {w["name"]: w for w in bench["workloads"]}
     if workload not in cells:
         raise KeyError(f"no workload {workload!r} in BENCHMARK.json "

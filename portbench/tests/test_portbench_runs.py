@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import harness, spec, trace
+from portbench import harness, spans, spec, trace
 from portbench.tests.cells import WORKLOADS, tiny_cell
 
 SEED = 2 ** 31 + 77
@@ -67,12 +67,28 @@ def test_window_ends_with_the_solve_in_flight():
     assert res["metrics"]["solve_s"]["value"] > 2.0
 
 
-def test_traced_run_reports_the_layers():
+def test_traced_run_reports_the_layers(monkeypatch):
+    seen = []
+    metrics = harness._metrics
+
+    def spy(entries, ctx):
+        seen.append(ctx)
+        return metrics(entries, ctx)
+    monkeypatch.setattr(harness, "_metrics", spy)
     res = run("tet10_box_1m_f64.pcg_f64", trace_on=True)
     assert res["correct"] is True
-    assert {"pcg_iters_per_solve", "pcg_iter_ms", "plan_build_s"} <= \
-        set(res["metrics"])
+    assert {"pcg_iters_per_solve", "pcg_iter_ms", "plan_build_s",
+            "host_syncs_per_solve"} <= set(res["metrics"])
     assert "breakdown" in res and res["device"]["window_s"] > 0
+    # the traced solve's recording reaches the metrics: one host read
+    # after each 32-iteration block and one in the prologue
+    ctx, = seen
+    counts = ctx.recording.counts
+    assert counts["cg.blocks"] == -(-ctx.solves[0]["iterations"] // 32)
+    assert res["metrics"]["host_syncs_per_solve"]["value"] == \
+        counts["cg.blocks"] + 1
+    assert all(s["detail"].startswith("own residual") for s in ctx.solves)
+    assert spans.PREFIX + "cg.solve" in {r[0] for r in ctx.recording.spans}
 
 
 @pytest.mark.parametrize("workload", WORKLOADS)
@@ -132,6 +148,55 @@ def test_unchanged_state_is_caught(workload, monkeypatch):
     res = run(workload)
     assert res["correct"] is False
     assert res["compared"]["resid_max"]["value"] == 1.0
+
+
+def _bench_of_one_cell(root, config: dict, path: str):
+    """A BENCHMARK.json in `root` with one cell, `config` through `path`,
+    written as a later change would add them: files and entries only."""
+    with open(os.path.join(spec.ROOT, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    name = config["name"]
+    rel = f"portbench/configs/{name}.json"
+    bench["configs"] = [{"name": name, "source": "a test's own box",
+                         "file": rel, "reduced": [], "why": "a test"}]
+    bench["workloads"] = [{"name": f"{name}.{path}", "config": name,
+                           "traffic": "box_top_axial", "chips": 1,
+                           "why": "a test"}]
+    os.makedirs(os.path.join(root, "portbench", "configs"))
+    with open(os.path.join(root, rel), "w") as f:
+        json.dump(config, f)
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(bench, f)
+    return f"{name}.{path}"
+
+
+TET4_BOX = {
+    "name": "tet4_box_tiny",
+    "mesh": {"generator": "box_tet4", "n": [2, 2, 3],
+             "size": [1.0, 1.0, 1.0]},
+    "element": {"type": "c3d4", "nodes": 4, "points": 1},
+    "elements": 72, "nodes": 36,
+    "material": {"E": 200e9, "nu": 0.3},
+    "precision": "float64",
+    "fixed": {"axis": 2, "value": 0.0},
+    "reduced": [],
+}
+
+
+def test_a_cell_of_another_element_needs_files_only(tmp_path):
+    """A c3d4 cell on another mesh generator, added by a configuration
+    file and BENCHMARK.json entries alone: found by name, solved by the
+    program, judged by the reference's c3d4, and caught when altered."""
+    workload = _bench_of_one_cell(str(tmp_path), TET4_BOX, "pcg_f64")
+    cell = spec.load(workload, root=str(tmp_path))
+    assert cell.config["element"]["type"] == "c3d4"
+    res, rc = harness.run_cell(cell, SEED, 0.01, False, "cpu",
+                               time.perf_counter())
+    assert rc == 0 and res["correct"] is True and res["failed"] == 0
+    assert res["compared"]["resid_max"]["value"] <= 1e-6
+    res, rc = harness.run_cell(cell, SEED, 0.01, False, "cpu",
+                               time.perf_counter(), fault=_alter("free"))
+    assert rc == 0 and res["correct"] is False
 
 
 def test_trace_summary_on_a_made_timeline():

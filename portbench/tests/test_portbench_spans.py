@@ -114,7 +114,8 @@ def test_measure_on_the_cpu():
 
 
 def test_plan_split_on_the_cpu():
-    out = spans.plan_split(2, "cpu")
+    mesh = tiny_cell("tet10_box_1m_f64.pcg_f64").config["mesh"]
+    out = spans.plan_split(mesh, 2, "cpu")
     assert out["elements"] == 2 * 2 * 2 * 6
     assert set(out["spans"]) == {"plan.build"} | {
         "plan." + n for n in ("order", "clusters", "numbering", "slots",

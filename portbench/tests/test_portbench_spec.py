@@ -9,13 +9,14 @@ import pytest
 
 from portbench import mesh as meshmod
 from portbench import spec
+from portbench.reference import elements
 
 ROOT = spec.ROOT
 with open(os.path.join(ROOT, "BENCHMARK.json")) as _f:
     BENCH = json.load(_f)
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
-WORKLOADS = [w["name"] for w in BENCH["workloads"]]
+WORKLOADS = spec.workloads()
 
 
 def test_top_level_keys_and_sizes():
@@ -74,7 +75,8 @@ def test_cell_files_load_by_name(workload):
     assert cell.chips == 1
     pm = importlib.import_module("portbench.paths."
                                  + spec.module_name(cell.path))
-    assert pm.OPERATOR in ("packed", "assembled")
+    layer = {m["name"] for m in cell.per_layer}
+    assert f"{pm.OPERATOR}_apply_roofline" in layer
     assert pm.DTYPE in ("float32", "float64")
     assert callable(pm.Path)
     for m in cell.end_to_end + cell.per_layer:
@@ -84,7 +86,11 @@ def test_cell_files_load_by_name(workload):
     assert cell.end_to_end and cell.per_layer
     assert {"setup_s"} < {m["name"] for m in cell.end_to_end}
     cfg = cell.config
-    assert (cfg["elements"], cfg["nodes"]) == meshmod.sizes(cfg["mesh"]["n"])
+    gen = meshmod.generator(cfg["mesh"]["generator"])
+    assert (cfg["elements"], cfg["nodes"]) == gen.sizes(cfg["mesh"]["n"])
+    el = elements.load(cfg["element"]["type"])
+    assert el.gradients(el.POINTS).shape == (cfg["element"]["points"],
+                                             cfg["element"]["nodes"], 3)
     for c in cell.traffic["cases"]:
         assert NAME.match(c["name"])
 
