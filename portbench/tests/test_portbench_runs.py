@@ -2,11 +2,13 @@
 the look for a card skipped: the program comes out correct; its control
 and each fault planted under the timed path come out not correct."""
 import ast
+import importlib
 import json
 import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import pytest
@@ -26,17 +28,24 @@ def few_threads():
     torch.set_num_threads(n)
 
 
-def run(workload, trace_on=False, control=False, fault=None, n=(1, 1, 2)):
-    res, rc = harness.run_cell(tiny_cell(workload, n), SEED, 0.01, trace_on,
-                               "cpu", time.perf_counter(), control=control,
-                               fault=fault)
+def run(workload, trace_on=False, control=False, fault=None, n=(1, 1, 2),
+        root=spec.ROOT):
+    res, rc = harness.run_cell(tiny_cell(workload, n, root), SEED, 0.01,
+                               trace_on, "cpu", time.perf_counter(),
+                               control=control, fault=fault)
     assert rc == 0
     return res
 
 
-@pytest.mark.parametrize("workload", WORKLOADS)
-def test_program_is_correct(workload):
-    res = run(workload)
+def path_module(workload, root=spec.ROOT):
+    """The path module of a cell, for the constant it declares
+    (portbench.paths: FROZEN_ZERO)."""
+    name = spec.module_name(spec.load(workload, root).path)
+    return importlib.import_module("portbench.paths." + name)
+
+
+def check_program(workload, root=spec.ROOT):
+    res = run(workload, root=root)
     assert res["correct"] is True and res["failed"] == 0
     assert res["attempted"] >= 1
     assert set(res["metrics"]) == {"solve_s", "setup_s"}  # no card peak
@@ -44,6 +53,11 @@ def test_program_is_correct(workload):
     assert res["compared"]["resid_max"]["value"] <= \
         res["compared"]["resid_max"]["limit"]
     json.dumps(res)
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_program_is_correct(workload):
+    check_program(workload)
 
 
 def test_window_ends_with_the_solve_in_flight():
@@ -91,25 +105,33 @@ def test_traced_run_reports_the_layers(monkeypatch):
     assert spans.PREFIX + "cg.solve" in {r[0] for r in ctx.recording.spans}
 
 
-@pytest.mark.parametrize("workload", WORKLOADS)
-def test_control_is_not_correct(workload):
+def check_control(workload, root=spec.ROOT):
     # at (1, 1, 2) float32 round-off reads only 2.5-3.1 times the bar
-    res = run(workload, control=True, n=(3, 3, 3))
+    res = run(workload, control=True, n=(3, 3, 3), root=root)
     assert res["correct"] is False
     c = res["compared"]
     assert c["resid_max"]["value"] > 3 * c["resid_max"]["limit"]
 
 
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_control_is_not_correct(workload):
+    check_control(workload)
+
+
 def _halve(path):
     """Half of the elements left out and the rest counted twice (the mean
-    over the kept half), in every operator the path built."""
+    over the kept half), in every operator the path keeps by element after
+    its build (see portbench.paths on a path that condenses the system)."""
     ws = []
-    if hasattr(path, "system") and path.system is not None:
-        ws.append(path.system.op.W)
+    op = getattr(getattr(path, "system", None), "op", None)
+    if op is not None:
+        ws.append(op.W)
     if getattr(path, "refined", None) is not None:
         ws += [W for _, _, _, W in path.refined.op64.chunks]
     if hasattr(path, "model"):
         ws += [op.K for op in path.model.solid_ops]
+    if hasattr(path, "element_weights"):
+        ws += list(path.element_weights())
     assert ws
     for w in ws:
         w[::2] = 0.0
@@ -141,13 +163,27 @@ def test_planted_fault_is_caught(workload, fault):
     assert run(workload, fault=FAULTS[fault])["correct"] is False
 
 
-@pytest.mark.parametrize("workload", WORKLOADS)
-def test_unchanged_state_is_caught(workload, monkeypatch):
+# a frozen state's answer where the path's is not exactly 0: 10,000 times
+# the traffic's 1e-6 bar, so that no rounding error can read so high
+FROZEN_FLOOR = 1e-2
+
+
+def check_unchanged_state(workload, monkeypatch, root=spec.ROOT):
     from tpufem_torch.solvers.cg import CGBlock
     monkeypatch.setattr(CGBlock, "body", lambda self, n: None)
-    res = run(workload)
+    res = run(workload, root=root)
     assert res["correct"] is False
-    assert res["compared"]["resid_max"]["value"] == 1.0
+    resid = res["compared"]["resid_max"]["value"]
+    if getattr(path_module(workload, root), "FROZEN_ZERO", True):
+        assert resid == 1.0
+    else:
+        assert res["failed"] == res["attempted"]
+        assert resid >= FROZEN_FLOOR
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_unchanged_state_is_caught(workload, monkeypatch):
+    check_unchanged_state(workload, monkeypatch)
 
 
 def _bench_of_one_cell(root, config: dict, path: str):
@@ -197,6 +233,121 @@ def test_a_cell_of_another_element_needs_files_only(tmp_path):
     res, rc = harness.run_cell(cell, SEED, 0.01, False, "cpu",
                                time.perf_counter(), fault=_alter("free"))
     assert rc == 0 and res["correct"] is False
+
+
+class SubstructuredPath:
+    """A path that condenses the system: the program's ``build_hybrid``
+    with the BDD interface preconditioner and tpufem's settings for
+    BASELINE config 4 (slim, K_II^-1 stored, the assembled interface
+    block applied matrix-free), in the configuration's ``parts`` by RCB
+    and its ``precision`` (the control: float32).  The interface PCG
+    solves to INTERFACE_TOL times the norm of the condensed load g, as the
+    program's ``scripts/bench_hybrid.py`` asks; the interiors follow from
+    K_II^-1 (f_I - K_IG u_G).  The program takes only an absolute
+    tolerance, so each solve condenses the load once more than it needs
+    for that norm (an interior solve, a K_IG^T GEMV and a host read)."""
+
+    INTERFACE_TOL = 1e-7
+    WARM_ITERATIONS = 64
+
+    def __init__(self, mesh, config, traffic, device, stages, control=False):
+        import tpufem_torch as tt
+
+        m = config["material"]
+        dtype = (torch.float32 if control
+                 else getattr(torch, config["precision"]))
+        self.max_iter = int(traffic["max_iter"])
+        self.fixed = torch.as_tensor(mesh.fixed, device=device).long()
+        with stages("partition"):
+            labels = tt.partition.rcb_partition(mesh.coords, mesh.conn,
+                                                config["parts"])
+        with stages("hybrid"):
+            self.system = tt.build_hybrid(
+                mesh.coords, mesh.conn, config["element"]["type"], m["E"],
+                m["nu"], config["parts"], fixed_nodes=mesh.fixed,
+                labels=labels, dtype=dtype, precondition="bdd", slim=True,
+                interior_inverse=True, matrix_free_gg=True, device=device)
+
+    def solve(self, b):
+        return self._solve(b, self.max_iter)
+
+    def warm(self, b):
+        self._solve(b, self.WARM_ITERATIONS)
+
+    def _solve(self, b, max_iter):
+        s = self.system
+        f = torch.tensor(b, dtype=s.dtype, device=s.device)
+        f[self.fixed] = 0.0
+        gn = float(torch.linalg.norm(s._condense(f)[1]))
+        u, info = s.solve(f, tol=self.INTERFACE_TOL * gn, max_iter=max_iter)
+        return (u.double().cpu().numpy(), int(info.status) == 1,
+                int(info.iterations),
+                f"own residual {float(info.residual_norm)!r}")
+
+    def diagonal(self):
+        return None
+
+    def apply_call(self):
+        v = torch.ones((self.system.meta.n_interface, 3),
+                       dtype=self.system.dtype, device=self.system.device)
+        return lambda: self.system.schur_matvec(v)
+
+    def element_weights(self):
+        return [self.system.mf_op.W]
+
+    def close(self):
+        self.system = None
+
+
+def substructured_module():
+    """SubstructuredPath's module, as ``portbench/paths/<name>.py`` would
+    hold it: its answer is not 0 under a frozen interface state (the
+    interiors are solved directly)."""
+    mod = types.ModuleType("portbench.paths.substructured_bdd")
+    mod.__dict__.update(OPERATOR="schur", DTYPE="float64", DIAG_LIMIT=None,
+                        FROZEN_ZERO=False, Path=SubstructuredPath)
+    return mod
+
+
+def _halved_stiffness(stiffness):
+    """The program's element matrices with half of the elements left out
+    and the rest counted twice, as ``_halve`` leaves a built operator's
+    weights: planted before a build that condenses them into blocks."""
+    def halved(*args, **kwargs):
+        K = stiffness(*args, **kwargs)
+        K[::2] = 0.0
+        K[1::2] *= 2.0
+        return K
+    return halved
+
+
+def test_a_condensing_path_needs_files_only(tmp_path, monkeypatch):
+    """A path that condenses the system, added as a path module and
+    BENCHMARK.json entries alone, in 2 parts of the c3d4 box, which its
+    ``cpu_test`` entry sets to (6, 6, 6): there the float32 round-off of
+    the control reads above 3 times the bar.  The checks that every cell
+    gets read its declared constant and weights, and find the program
+    correct, its control, each planted fault and a frozen state not
+    correct; half of the elements left out is planted before the build
+    too, so that every block the path condenses is halved."""
+    from tpufem_torch.elements import solid
+
+    mod = substructured_module()
+    monkeypatch.setitem(sys.modules, mod.__name__, mod)
+    root = str(tmp_path)
+    cpu_mesh = dict(TET4_BOX["mesh"], n=[6, 6, 6])
+    workload = _bench_of_one_cell(
+        root, dict(TET4_BOX, parts=2, cpu_test={"mesh": cpu_mesh}),
+        "substructured_bdd")
+    assert path_module(workload, root) is mod
+    check_program(workload, root)
+    check_control(workload, root)
+    with monkeypatch.context() as m:
+        m.setattr(solid, "stiffness", _halved_stiffness(solid.stiffness))
+        assert run(workload, fault=_halve, root=root)["correct"] is False
+    for fault in FAULTS.values():
+        assert run(workload, fault=fault, root=root)["correct"] is False
+    check_unchanged_state(workload, monkeypatch, root)
 
 
 def test_trace_summary_on_a_made_timeline():
