@@ -27,9 +27,10 @@ printed):
   1. device: torch's device name and nvidia-smi's name and power limit;
   2. build: every CUDA kernel from tpufem_torch/csrc with nvcc (sm_90a),
      one nvcc per source, all at once; each instantiation's demangled name,
-     registers, shared memory and spills (-Xptxas -v); fails if an f32
-     instantiation of fused_yc, combine, cluster_expand, cluster_compress,
-     stiffness_fused or compress_planar spills;
+     registers, shared memory and spills (-Xptxas -v); fails if an
+     instantiation of fused_yc (f32 or f64) or an f32 one of combine,
+     cluster_expand, cluster_compress, stiffness_fused or compress_planar
+     spills;
   The refined packed solve:
   3. setup: mesh, packed plan and the f32 operator's geometry;
   4. parity: each kernel against its plain PyTorch version on the mesh's
@@ -68,7 +69,9 @@ printed):
      then each kernel's device time per sweep, the "ms" of the JSON line;
      K1's sweep against the K4 expand + K3 compress_gather sweeps on the
      same tables, six profiler windows each taken in turns (min, median,
-     max; K1's "ms" is the median), and K1's blocks per SM; K2's sweep in
+     max; K1's "ms" is the median), and the registers, blocks and warps
+     an SM of its c3d10 instantiations on the plan (f32, f64) and the
+     registers of the others; K2's sweep in
      turns with its index_add_ yardstick the same way (its "ms" and
      "library_ms" are the medians of the device times).
   The assembled-stiffness static solve (the same mesh and load: E =
@@ -126,7 +129,8 @@ printed):
       for K2/K3); K5b's sweep in turns with K3's on the same tables (six
       windows each; K5b's "ms" is the median) and its registers and
       spills; 9a adds K1's c3d4 and c3d8 device ms and bounds on
-      curved box_tet(n) and box_hex(m) meshes of about 6 n^3 elements.
+      curved box_tet(n) and box_hex(m) meshes of about 6 n^3 elements,
+      with their registers, blocks and warps an SM on those plans.
   The probes (no mesh; B = 39,360, box_tet10(55)'s cluster count):
   10a. relayout_fwd (every variant), relayout_inv (every variant),
        row_accumulate, planar_write and planar_read against their plain
@@ -459,6 +463,37 @@ def ptxas_digest(kernel) -> str:
         f"static shared memory, spills {e['spill_stores']} B stored / "
         f"{e['spill_loads']} B loaded, stack {e['stack']} B"
         for e in entries)
+
+
+def k1_registers(kq=None) -> str:
+    """Registers and spill bytes of fused_yc's instantiations (of (k, q)
+    kq only, if given), from the build log."""
+    import tpufem_torch as tt
+    out = []
+    for e in ptxas_entries(tt.FUSED_YC) or []:
+        name = e["name"].split("fused_yc_kernel")[-1]
+        if kq is None or f"(int){kq[0]}, (int){kq[1]}>" in name:
+            out.append(f"{name} {e['registers']} registers, spills "
+                       f"{e['spill_stores']} B")
+    return "; ".join(out) or "(no build log)"
+
+
+def k1_blocks(plan, k: int, q: int) -> dict:
+    """{dtype name: blocks of fused_yc an SM} in f32 and f64 on the plan's
+    launched buckets (the least over them, as the operator's
+    fused_yc.warps_per_sm counter)."""
+    from tpufem_torch.ops import fused_kernels as fk
+    return {str(dt)[6:]: fk.warps_per_sm(dt, k, q, plan) // fk.WARPS_PER_BLOCK
+            for dt in (torch.float32, torch.float64)}
+
+
+def k1_residency(plan, k: int, q: int) -> str:
+    """fused_yc's registers, blocks and warps an SM in f32 and f64 on the
+    plan (k1_blocks)."""
+    from tpufem_torch.ops import fused_kernels as fk
+    res = [f"{name} {b} blocks, {b * fk.WARPS_PER_BLOCK} warps an SM"
+           for name, b in k1_blocks(plan, k, q).items()]
+    return f"{k1_registers((k, q))}; " + ", ".join(res)
 
 
 def flops_per_element(dN: np.ndarray) -> int:
@@ -836,17 +871,16 @@ def packed_phase(args, dev):
                                         turns["compress_gather"])])
     kernel_ms["fused_yc"] = k1[1]
     Wp = max(c.shape[1] for c in plan.cinc)
-    occ = {str(dt)[6:]: fk.occupancy(dt, 10, 4, Wp, m.lanes,
-                                     len(m.cv_widths[0]))
-           for dt in (torch.float32, torch.float64)}
     log(f"K1 against K4 + K3, {len(turns['fused_yc'])} torch.profiler "
         f"windows of {args.reps} sweeps each, in turns: fused_yc "
         f"{fmt_spread(k1)} ms per sweep; expand + compress_gather "
         f"{fmt_spread(k43)} (expand {fmt_spread(spread(turns['expand']))}, "
         f"compress_gather {fmt_spread(spread(turns['compress_gather']))}); "
         f"median ratio {k1[1] / k43[1]:.3f}; bound {times['fused_yc'][2]:.4f}"
-        f" ms ({times['fused_yc'][2] / k1[1]:.1%} of the median); occupancy "
-        f"{occ} blocks of 128 threads per SM (Wp {Wp})")
+        f" ms ({times['fused_yc'][2] / k1[1]:.1%} of the median); on this "
+        f"plan (Wp {Wp}, Rp {m.lanes}, E_c {m.elems_per_cluster}): "
+        f"{k1_residency(plan, 10, 4)}; every instantiation's registers: "
+        f"{k1_registers()}")
 
     # library yardsticks: one index_add_ over index tables built once;
     # K2's sweep in turns with its own (device times, six windows)
@@ -899,7 +933,7 @@ def packed_phase(args, dev):
         if K.name == "fused_yc":
             rows[-1].update(ms_min=k1[0], ms_max=k1[2],
                             expand_plus_compress_ms=list(k43),
-                            blocks_per_sm=occ)
+                            blocks_per_sm=k1_blocks(plan, 10, 4))
         if K.name == "combine":
             rows[-1].update(ms_min=k2[0], ms_max=k2[2], library_min=k2lib[0],
                             library_max=k2lib[2])
@@ -1740,7 +1774,8 @@ def staged_phase(args, dev, ctx, tip_fused):
             f"{o.plan.meta.n_clusters}, qJ={o.Jinv.shape[1] // 9}: "
             f"{ms:.4f} ms device per f32 sweep (torch.profiler); bound "
             f"{b_ms:.4f} ms by {b_by} ({nbytes} bytes, {flops} flops; "
-            f"{b_ms / ms:.1%} of it)")
+            f"{b_ms / ms:.1%} of it); "
+            f"{k1_residency(o.plan, cn.shape[1], o.dN.shape[0])}")
     del o, x
 
     # 9b. operator cross-checks on the whole mesh; the planar pipeline's
@@ -3854,12 +3889,14 @@ def main() -> None:
     log(f"tpufem_torch from {os.path.dirname(os.path.dirname(tt.__file__))}")
     for K in kernels:
         log(f"  ptxas {K.name}:{ptxas_digest(K)}")
-    # the redesigned kernels' f32 instantiations do not spill
+    # the redesigned kernels' f32 instantiations, and every one of
+    # fused_yc's, do not spill
     for K in set(kernels) & {tt.FUSED_YC, tt.COMBINE, tt.CLUSTER_EXPAND,
                              tt.CLUSTER_COMPRESS, tt.STIFFNESS_FUSED,
                              tt.COMPRESS_PLANAR}:
         for e in ptxas_entries(K) or []:
-            if "<float" in e["name"] and e["spill_stores"] > 0:
+            if (("<float" in e["name"] or K is tt.FUSED_YC)
+                    and e["spill_stores"] > 0):
                 fail(f"{e['name']} spills {e['spill_stores']} bytes")
 
     rows, tip, ctx = [], None, None

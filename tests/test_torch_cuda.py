@@ -365,34 +365,45 @@ K1_EDGE_MESHES = {"c3d10": ("box_tet10", (6, 5, 4)),
 @pytest.mark.cuda
 @pytest.mark.parametrize("etype", list(K1_EDGE_MESHES))
 @pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
-def test_fused_yc_edge_buckets(cuda_device, etype, dt):
+@pytest.mark.parametrize("E_c", [32, 8], ids=["ec32", "ec8"])
+def test_fused_yc_edge_buckets(cuda_device, etype, dt, E_c):
     """fused_yc on parts of the largest bucket, bitwise against its plain
-    version: its last cluster, its last five (not a multiple of the four
-    clusters per block) and all but the first (the bucket starts with
-    clusters that hold only padding); with window rows padded (== Nb) and
-    slots emptied (wslot >= wk) by hand; all three (k, q)."""
+    version: its last cluster, its last five and last three (an odd count:
+    the last block holds fewer clusters than a block takes) and all but
+    the first (the bucket starts with clusters that hold only padding);
+    with window rows padded (== Nb) and slots emptied (wslot >= wk) by
+    hand, and the second half of the first cluster's elements padded by
+    hand (W = 0 at every point); all three (k, q), at 32 elements a
+    cluster and at 8 (c3d4's 32 lanes, c3d8's 64 and c3d10's 80 end inside
+    a 128-lane chunk; c3d10's 320 at 32 too; a warp then spans points and
+    node halves)."""
     gen, dims = K1_EDGE_MESHES[etype]
     coords, conn = getattr(tpufem_torch.meshgen, gen)(*dims)
     coords = coords.copy()
     coords[:, 0] += 0.04 * np.sin(2.0 * coords[:, 1]) * coords[:, 2]
     op = tpufem_torch.PackedPartialOperator.build(
         coords, conn, etype, E, NU, n_nodes=coords.shape[0], dtype=dt,
-        device=cuda_device)
+        elems_per_cluster=E_c, device=cuda_device)
     tp, m = op.plan, op.plan.meta
     jinv, w = op.cluster_geometry()
     lam, mu = op.lam_mu
-    gi = max(range(len(m.c_groups)), key=lambda g: m.c_groups[g][1])
+    # the largest bucket of clusters over more than one window row (at 8
+    # elements a cluster c3d4's largest bucket has one)
+    wide = [g for g, (_, _, wk) in enumerate(m.c_groups) if wk > 1]
+    gi = max(wide or range(len(m.c_groups)), key=lambda g: m.c_groups[g][1])
     s, n, wk = m.c_groups[gi]
     assert n >= 6 and wk > 1
     X = torch.as_tensor(np.random.default_rng(14).standard_normal(
         (m.n_blocks, 384)), dtype=dt, device=cuda_device)
-    for lo, hi in ((n - 1, n), (n - 5, n), (1, n)):
+    for lo, hi in ((n - 1, n), (n - 5, n), (n - 3, n), (1, n)):
         sl = slice(s + lo, s + hi)
         win, wsl = tp.win_nodes[sl].clone(), tp.wslot[sl].clone()
         win[:, wk - 1] = m.n_blocks              # a padded window row
         wsl[:, ::7] = wk                         # empty slots
+        wp = w[sl].clone()
+        wp[0, :, E_c // 2:] = 0                  # padded elements
         args = (X, win, wsl, tp.jslot[sl], tp.lconn[sl],
-                tp.cinc[gi][lo:hi], jinv[sl], w[sl], op.dN, lam, mu,
+                tp.cinc[gi][lo:hi], jinv[sl], wp, op.dN, lam, mu,
                 m.cv_widths[gi])
         launches = tfk.FUSED_YC.launches
         got = tfk.fused_yc(*args, wk=wk)
@@ -400,6 +411,25 @@ def test_fused_yc_edge_buckets(cuda_device, etype, dt):
         assert got[-1].abs().max() > 0
         assert torch.equal(got, tfk.fused_yc_plain(*args, wk=wk))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
+def test_build_records_fused_yc_warps_per_sm(cuda_device, dt):
+    """The operator's build on the card records fused_yc.warps_per_sm:
+    the least over its cluster buckets of the blocks an SM times the warps
+    a block; above the 12 warps (3 blocks) that c3d10 took in f32 when
+    one thread held a whole element."""
+    from tpufem_torch.utils import profiling
+    coords, conn = tpufem_torch.meshgen.box_tet10(6, 5, 4)
+    with profiling.recording() as rec:
+        op = tpufem_torch.PackedPartialOperator.build(
+            coords, conn, "c3d10", E, NU, n_nodes=coords.shape[0],
+            dtype=dt, device=cuda_device)
+    warps = rec.counts["fused_yc.warps_per_sm"]
+    assert warps == tfk.warps_per_sm(dt, 10, 4, op.plan)
+    assert warps % tfk.WARPS_PER_BLOCK == 0
+    assert warps > (12 if dt == torch.float32 else 8)
 
 
 @pytest.mark.cuda
@@ -595,21 +625,26 @@ def test_expand_straddling_lanes(cuda_device, dt):
     assert torch.equal(op(X).cpu(), cpu(X.cpu()))
 
 
-K1_MESHES = {"c3d4": ("box_tet", (6, 5, 4)), "c3d8": ("box_hex", (6, 5, 4))}
+K1_MESHES = {"c3d4": ("box_tet", (6, 5, 4)), "c3d8": ("box_hex", (6, 5, 4)),
+             "c3d10": ("box_tet10", (4, 4, 3))}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("etype", list(K1_MESHES))
 @pytest.mark.parametrize("dt", DTYPES, ids=["f32", "f64"])
-def test_fused_yc_other_solids_bitwise(cuda_device, etype, dt):
-    """fused_yc's (4, 1) and (8, 8) instantiations on curved meshes."""
+@pytest.mark.parametrize("E_c", [32, 8], ids=["ec32", "ec8"])
+def test_fused_yc_other_solids_bitwise(cuda_device, etype, dt, E_c):
+    """fused_yc's (4, 1), (8, 8) and (10, 4) instantiations on curved
+    meshes, every bucket, at 32 and 8 elements a cluster (at 8 each
+    element's lanes end inside a 128-lane chunk)."""
     gen, dims = K1_MESHES[etype]
     coords, conn = getattr(tpufem_torch.meshgen, gen)(*dims)
     coords = coords.copy()
     coords[:, 0] += 0.04 * np.sin(2.0 * coords[:, 1]) * coords[:, 2]
     op = tpufem_torch.PackedPartialOperator.build(
         coords, conn, etype, E, NU, n_nodes=coords.shape[0], dtype=dt,
-        device=cuda_device)
+        elems_per_cluster=E_c, device=cuda_device)
+    assert op.fuse == "dense"
     X = torch.as_tensor(np.random.default_rng(11).standard_normal(
         (op.plan.meta.n_blocks, 384)), dtype=dt, device=cuda_device)
     launches = tfk.FUSED_YC.launches

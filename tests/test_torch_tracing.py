@@ -75,6 +75,35 @@ def test_counters_read_every_kernel_from_the_registry():
         k.launches -= 2
 
 
+def test_fused_yc_warps_per_sm(monkeypatch):
+    """fused_yc.warps_per_sm: the least over the plan's launched cluster
+    buckets of the blocks an SM, times the warps a block; recorded at a
+    fused operator's build on the card only (the CPU runs no kernel)."""
+    from tpufem_torch.ops import fused_kernels as fk
+    coords, conn = meshgen.box_tet10(4, 4, 4)
+    with profiling.recording() as rec:
+        op = tt.PackedPartialOperator.build(coords, conn, "c3d10", 200e9,
+                                            0.3, n_nodes=coords.shape[0],
+                                            device="cpu")
+    assert op.fuse == "dense"
+    assert "fused_yc.warps_per_sm" not in rec.counts
+    seen = []
+
+    def occupancy(dtype, k, q, Wp, Rp, n_chunks, E_c):
+        seen.append((dtype, k, q, Wp, Rp, n_chunks, E_c))
+        return 9 - len(seen)             # the last bucket holds the fewest
+
+    monkeypatch.setattr(fk, "occupancy", occupancy)
+    p, m = op.plan, op.plan.meta
+    launched = [g for g, (_, n, wk) in enumerate(m.c_groups) if wk and n]
+    assert launched
+    assert fk.warps_per_sm(torch.float64, 10, 4, p) == \
+        fk.WARPS_PER_BLOCK * (9 - len(launched))
+    assert seen == [(torch.float64, 10, 4, p.cinc[g].shape[1], m.lanes,
+                     len(m.cv_widths[g]), m.elems_per_cluster)
+                    for g in launched]
+
+
 def test_spans_in_the_profilers_trace_on_its_clock():
     from torch.profiler import ProfilerActivity, profile
     # inside an outer annotation, as a profiled run holds the program's

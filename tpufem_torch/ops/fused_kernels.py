@@ -30,21 +30,33 @@ FUSED_YC = cuda.CudaKernel(
         cuda.I32, cuda.VP, cuda.VP, cuda.VP, cuda.I32, cuda.VP, cuda.I32,
         cuda.VP, cuda.I32, cuda.VP, cuda.I32, cuda.VP, cuda.F64, cuda.F64,
         cuda.VP, cuda.I32, cuda.VP, cuda.I64, cuda.VP],
-     "tpufem_fused_yc_occupancy": [cuda.I32] * 6})
+     "tpufem_fused_yc_occupancy": [cuda.I32] * 7})
 # (k, q) the kernel is instantiated for: the default rules of c3d10, c3d4
 # and c3d8 (csrc/fused_yc.cu dispatch)
 KERNEL_KQ = ((10, 4), (4, 1), (8, 8))
+WARPS_PER_BLOCK = BLK // 32         # a block is 128 threads
 
 
-def occupancy(dtype, k: int, q: int, Wp: int, Rp: int, n_chunks: int
-              ) -> int:
+def occupancy(dtype, k: int, q: int, Wp: int, Rp: int, n_chunks: int,
+              E_c: int) -> int:
     """Blocks of the kernel one SM of the card holds at once for these
-    table widths (needs the card)."""
+    table widths and elements per cluster (needs the card)."""
     res = FUSED_YC.lib().tpufem_fused_yc_occupancy(
-        int(dtype == torch.float64), k, q, Wp, Rp, n_chunks)
+        int(dtype == torch.float64), k, q, Wp, Rp, n_chunks, E_c)
     if res < 0:
         raise RuntimeError(f"fused_yc occupancy: CUDA error {-res}")
     return res
+
+
+def warps_per_sm(dtype, k: int, q: int, plan) -> int:
+    """Warps of the kernel one SM holds at once on a PackedPlan: the least
+    over the cluster buckets it launches for of the blocks an SM, times
+    the warps a block; 0 where it launches for none (needs the card)."""
+    m = plan.meta
+    blocks = [occupancy(dtype, k, q, plan.cinc[gi].shape[1], m.lanes,
+                        len(m.cv_widths[gi]), m.elems_per_cluster)
+              for gi, (_, n, wk) in enumerate(m.c_groups) if wk and n]
+    return WARPS_PER_BLOCK * min(blocks, default=0)
 
 
 def _pa_planes(ue, Ji, Wq, dN, lam, mu):

@@ -782,6 +782,9 @@ class PackedPartialOperator(torch.nn.Module):
         self.register_buffer("W", W)
         self.dN = np.asarray(dN, np.float64)          # host [q, k, 3]
         self.lam_mu = (float(lam), float(mu))
+        if fuse and Jinv.device.type == "cuda":
+            count("fused_yc.warps_per_sm",
+                  fk.warps_per_sm(Jinv.dtype, k, q, plan))
 
     @staticmethod
     def build(coords, conn, etype: str, E: float, nu: float,
