@@ -3149,7 +3149,8 @@ def workload_phase(args, dev):
                 sample = None
             else:
                 mesh_path, sample, info = simjeb._bundle_arrays(
-                    tmp, n, Es, nus, dev, "c3d10", simjeb._Stages(syn, dev))
+                    tmp, n, Es, nus, dev, "c3d10",
+                    profiling.StageClock(dev, syn))
                 s_status, s_iters = int(info.status), int(info.iterations)
             t_syn = time.perf_counter() - t0
         finally:
@@ -3177,7 +3178,7 @@ def workload_phase(args, dev):
                 else:
                     m = simjeb._run_mesh_file(
                         mesh_path, sample, etype=None, dev=dev,
-                        stages=simjeb._Stages(tm, dev), E=Es, nu=nus,
+                        stages=profiling.StageClock(dev, tm), E=Es, nu=nus,
                         verbose=True, **kw)
                 secs = time.perf_counter() - t0
             finally:

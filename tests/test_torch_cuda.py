@@ -1298,11 +1298,12 @@ def _workload(dev, bundle=None):
     pipeline run_simjeb_workload runs after ingest; no h5 file, which this
     machine may not read): synthesized on `dev`, or run from `bundle`.
     Returns ((synthesis SolveInfo, arrays) or None, metrics)."""
+    from tpufem_torch.utils.profiling import StageClock
     from tpufem_torch.workloads import simjeb
     prev = torch.get_default_dtype()
     tpufem_torch.enable_x64()
     try:
-        stages = simjeb._Stages(None, dev)
+        stages = StageClock(dev)
         syn = None
         if bundle is None:
             *arrays, info = simjeb._synthesize_arrays(

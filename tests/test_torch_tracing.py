@@ -7,7 +7,10 @@ import torch
 
 import tpufem_torch as tt
 from tpufem_torch.ops import cuda
+from tpufem_torch.solvers import hybrid as th
+from tpufem_torch.solvers.bicgstab import BiCGStabBlock
 from tpufem_torch.solvers.cg import CHECK_EVERY, CGBlock
+from tpufem_torch.solvers.gmres import GMRESCycle
 from tpufem_torch.utils import meshgen, profiling
 
 
@@ -132,24 +135,91 @@ def _laplacian(n=100):
     return A, torch.linspace(1.0, 2.0, n, dtype=torch.float64)
 
 
-def test_cg_block_spans_and_host_reads():
+# each solver's block and the iterations a block (or cycle) runs
+BLOCKS = {
+    "cg": (lambda A, b: CGBlock(A, b, tol=1e-8), CHECK_EVERY),
+    "bicgstab": (lambda A, b: BiCGStabBlock(A, b, tol=1e-8), CHECK_EVERY),
+    "gmres": (lambda A, b: GMRESCycle(A, b, tol=1e-8, restart=50), 50),
+}
+
+
+@pytest.mark.parametrize("kind", list(BLOCKS))
+def test_cg_block_spans_and_host_reads(kind):
+    """One status read a block or cycle (span <kind>.sync, counted in
+    host_syncs) and one after the last; a launch span a block."""
     A, b = _laplacian()
-    blk = CGBlock(lambda x: A @ x, b, tol=1e-8)
+    make, per = BLOCKS[kind]
+    blk = make(lambda x: A @ x, b)
     with profiling.recording() as rec:
         _, info = blk.solve(b, max_iter=1000)
     it = int(info.iterations)
-    assert int(info.status) == 1 and CHECK_EVERY < it < 1000
-    assert it % CHECK_EVERY                  # converged inside a block
-    blocks = -(-it // CHECK_EVERY)
+    assert int(info.status) == 1 and per < it < 1000
+    assert it % per                          # converged inside a block
+    blocks = -(-it // per)
     names = _names(rec)
-    assert names.count("tpufem_torch.cg.launch") == blocks
-    assert names.count("tpufem_torch.cg.sync") == blocks + 1
-    assert rec.counts == {"cg.blocks": blocks, "host_syncs": blocks + 1}
+    assert names.count(f"tpufem_torch.{kind}.launch") == blocks
+    assert names.count(f"tpufem_torch.{kind}.sync") == blocks + 1
+    counts = {"host_syncs": blocks + 1}
+    if kind == "cg":
+        counts["cg.blocks"] = blocks
+    assert rec.counts == counts
+    if kind != "cg":
+        return
     by = {s[1]: s for s in rec.spans}
     solve = [s for s in rec.spans if s[0] == "tpufem_torch.cg.solve"]
     assert len(solve) == 1
     assert all(by[s[2]][0] == "tpufem_torch.cg.solve" for s in rec.spans
                if s is not solve[0])
+
+
+@pytest.fixture(scope="module")
+def packed_f64():
+    """An f64 PackedSystem at box_tet10(2, 2, 2) and a unit-norm load."""
+    coords, conn = meshgen.box_tet10(2, 2, 2)
+    N = coords.shape[0]
+    b = np.zeros((N, 3))
+    b[meshgen.boundary_nodes(coords, 2, 1.0), 2] = -1.0
+    op = tt.PackedPartialOperator.build(
+        coords, conn, "c3d10", 200e9, 0.3, n_nodes=N, dtype=torch.float64,
+        device="cpu")
+    system = tt.PackedSystem(op, fixed_nodes=meshgen.boundary_nodes(
+        coords, 2, 0.0), precondition="jacobi")
+    return system, b / np.linalg.norm(b)
+
+
+def _hybrid():
+    coords, conn = meshgen.box_tet(3, 3, 3)
+    b = np.zeros((coords.shape[0], 3))
+    b[meshgen.boundary_nodes(coords, 2, 1.0), 2] = -1.0
+    sys_ = th.build_hybrid(coords, conn, "c3d4", 200.0, 0.3, 2,
+                           fixed_nodes=meshgen.boundary_nodes(coords, 2, 0.0),
+                           device="cpu")
+    return lambda: sys_.solve_chunked(b, tol=1e-8, max_iter=300, every=7)
+
+
+@pytest.mark.parametrize("entry, per_chunk", [
+    ("solve_chunked_packed", 2), ("solve_chunked", 3), ("hybrid", 3)])
+def test_chunked_host_reads(packed_f64, entry, per_chunk):
+    """Each chunk's host reads besides its blocks' (the cg.sync spans): the
+    count and the status, and the history in PackedSystem's and
+    HybridSystem's solve_chunked."""
+    system, b = packed_f64
+    run = {
+        "solve_chunked_packed": lambda: system.solve_chunked_packed(
+            system.op.plan.pack(torch.as_tensor(b)), tol=1e-8, every=7,
+            max_iter=300),
+        "solve_chunked": lambda: system.solve_chunked(
+            b, tol=1e-8, every=7, max_iter=300),
+        "hybrid": _hybrid() if entry == "hybrid" else None,
+    }[entry]
+    with profiling.recording() as rec:
+        _, info = run()
+    names = _names(rec)
+    chunks = names.count("tpufem_torch.cg.solve")
+    assert int(info.status) == 1
+    assert chunks == -(-int(info.iterations) // 7) > 1
+    assert rec.counts["host_syncs"] == (
+        names.count("tpufem_torch.cg.sync") + per_chunk * chunks)
 
 
 def test_refined_solve_spans():

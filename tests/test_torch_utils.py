@@ -1,8 +1,8 @@
 """tpufem_torch.utils.profiling and .checkpoint against tpufem's: the
-roofline counters and their report, the synchronized timers, the
-torch.profiler trace, the npz state round trip, and checkpointed_cg's
-chunked restarts step for step with tpufem's on tpufem's own box_tet(2)
-case (tests/test_utils_extra.py)."""
+roofline counters and their report, the synchronized timers, the set-up
+stage clock (the port's own), the torch.profiler trace, the npz state
+round trip, and checkpointed_cg's chunked restarts step for step with
+tpufem's on tpufem's own box_tet(2) case (tests/test_utils_extra.py)."""
 import json
 
 import jax.numpy as jnp
@@ -70,6 +70,30 @@ def test_timed_and_slope():
 
     s = t_prof.timed_slope(make, 1, 50, torch.zeros(10), reps=2)
     assert s >= 1e-12
+
+
+def test_stage_clock(monkeypatch):
+    """StageClock adds the seconds since the last tick to its stage's key
+    (a repeated stage accumulates), and without a dict records nothing."""
+    now = iter([10.0, 10.5, 12.0, 12.25, 20.0, 21.0])
+    monkeypatch.setattr(t_prof.time, "perf_counter", lambda: next(now))
+    timings = {"before": 7.0}
+    clock = t_prof.StageClock("cpu", timings)
+    clock.tick("a")
+    clock.tick("b")
+    clock.tick("a")
+    assert timings == {"before": 7.0, "a": 0.75, "b": 1.5}
+    clock = t_prof.StageClock(torch.device("cpu"))
+    clock.tick("a")
+    assert clock.timings is None
+    monkeypatch.undo()
+    timings = {}
+    clock = t_prof.StageClock("cpu", timings)
+    for name in ("x", "y", "x"):
+        torch.ones(100).sum()
+        clock.tick(name)
+    assert set(timings) == {"x", "y"}
+    assert all(v >= 0.0 for v in timings.values())
 
 
 def test_trace_writes_chrome_trace(tmp_path):

@@ -17,6 +17,7 @@ from tpufem.workloads import run_simjeb_workload as j_run
 from tpufem.workloads import synthesize_simjeb_bundle as j_synth
 
 import tpufem_torch as tt
+from tpufem_torch.utils.profiling import StageClock
 from tpufem_torch.workloads import simjeb as t_simjeb
 
 KEYS = ("residual_truth", "residual_zero", "residual_solve", "vm_max",
@@ -145,7 +146,7 @@ def test_workload_without_h5_is_the_file_path(bundles, runs, tmp_path):
     dev = torch.device("cpu")
     mesh, sample, info = t_simjeb._bundle_arrays(
         str(tmp_path), 2, t_simjeb.SIMJEB_E, t_simjeb.SIMJEB_NU, dev, "c3d4",
-        t_simjeb._Stages(None, dev))
+        StageClock(dev))
     with open(mesh, "rb") as a, open(pt["mesh"], "rb") as b:
         assert a.read() == b.read()
     h5 = _h5(pt["h5"])
@@ -155,7 +156,7 @@ def test_workload_without_h5_is_the_file_path(bundles, runs, tmp_path):
         np.testing.assert_array_equal(sample[k], h5[k])
     assert int(info.iterations) == pt["iterations"]
     m = t_simjeb._run_mesh_file(
-        mesh, sample, etype=None, dev=dev, stages=t_simjeb._Stages(None, dev),
+        mesh, sample, etype=None, dev=dev, stages=StageClock(dev),
         E=t_simjeb.SIMJEB_E, nu=t_simjeb.SIMJEB_NU, tol=1e-8, max_iter=2000,
         warm_start=False, out_path=None, verbose=False)
     assert m == mt

@@ -22,6 +22,7 @@ import tempfile
 import time
 
 from tpufem_torch.core.device import resolve_device
+from tpufem_torch.utils.profiling import StageClock
 from tpufem_torch.workloads import (run_simjeb_workload,
                                     synthesize_simjeb_bundle)
 from tpufem_torch.workloads import simjeb
@@ -49,7 +50,7 @@ def main(argv=None):
             dev = resolve_device(args.device)
             mesh_path, sample, _ = simjeb._bundle_arrays(
                 out_dir, args.n, simjeb.SIMJEB_E, simjeb.SIMJEB_NU, dev,
-                "c3d4", simjeb._Stages(None, dev))
+                "c3d4", StageClock(dev))
         else:
             paths = synthesize_simjeb_bundle(out_dir, n=args.n,
                                              device=args.device)
@@ -63,7 +64,7 @@ def main(argv=None):
     else:
         metrics = simjeb._run_mesh_file(
             mesh_path, sample, etype=None, dev=dev,
-            stages=simjeb._Stages(None, dev), E=simjeb.SIMJEB_E,
+            stages=StageClock(dev), E=simjeb.SIMJEB_E,
             nu=simjeb.SIMJEB_NU, tol=1e-6, max_iter=2000, warm_start=True,
             out_path=out_path, verbose=True)
     print(f"workload wall time: {time.time() - t0:.1f} s")

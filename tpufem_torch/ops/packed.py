@@ -1299,34 +1299,27 @@ class PackedSystem:
             self.pc.project_residual(bX), x0=x0X, max_iter=max_iter)
         return self.op.plan.unpack(uX), info
 
-    def _chunk(self, bX, x0X, pX, rz, tol, every, dot_dtype):
-        return self._block(tol, dot_dtype).solve(
-            self.pc.project_residual(bX), x0=x0X, max_iter=every,
-            resume_state=(pX, rz), return_state=True)
+    def _chunks(self, bX, x0X, tol, max_iter, every, dot_dtype):
+        """solvers.cg.cg_chunks on this system.  tpufem's packed chunk loop
+        runs whole chunks of `every`, past max_iter when every does not
+        divide it: max_iter rounded up to a multiple of every gives those
+        chunks."""
+        from ..solvers.cg import cg_chunks
+        return cg_chunks(self._block(tol, dot_dtype),
+                         self.pc.project_residual(bX), x0X,
+                         -(-max_iter // every) * every, every)
 
     def solve_chunked_packed(self, bX: torch.Tensor, tol: float = 1e-8,
                              max_iter: int = 20000, every: int = 500,
                              dot_dtype=None):
         """solve_chunked with a packed [Nb, 384] RHS in and solution out
         (the refinement path's interface)."""
-        from ..solvers.cg import MAX_ITER
-        x0X = torch.zeros_like(bX)
-        pX = torch.zeros_like(bX)
-        rz = torch.tensor(-1.0, dtype=bX.dtype, device=bX.device)
-        done = 0
-        info = None
-        uX = x0X
-        while done < max_iter:
-            uX, info, (pX, rz) = self._chunk(bX, x0X, pX, rz, tol, every,
-                                             dot_dtype)
-            it = int(info.iterations)
-            done += it
-            x0X = uX
-            count("host_syncs", 2)          # the count and the status
-            if int(info.status) != MAX_ITER or it == 0:
-                break
-        info = info._replace(iterations=torch.tensor(done))
-        return uX, info
+        # one chunk's answer held at a time (a list of them would keep
+        # every chunk's u alive)
+        for uX, info, done in self._chunks(bX, torch.zeros_like(bX), tol,
+                                           max_iter, every, dot_dtype):
+            pass
+        return uX, info._replace(iterations=torch.tensor(done))
 
     def solve_chunked(self, b, x0=None, tol: float = 1e-8,
                       max_iter: int = 20000, every: int = 500,
@@ -1335,32 +1328,11 @@ class PackedSystem:
         recurrence continuation (cg resume_state): the same trajectory as
         one solve.  Returns (u [N, 3], SolveInfo) with the concatenated
         residual history and the total iteration count."""
-        from ..solvers.cg import MAX_ITER, RUNNING, SolveInfo
+        from ..solvers.cg import chunk_history
         bX, x0X = self._rhs(b, x0)
-        pX = torch.zeros_like(bX)            # rz_prev <= 0 -> fresh start
-        rz = torch.tensor(-1.0, dtype=bX.dtype, device=bX.device)
-        hists = []
-        done = 0
-        info = None
-        uX = x0X
-        while done < max_iter:
-            uX, info, (pX, rz) = self._chunk(bX, x0X, pX, rz, tol, every,
-                                             dot_dtype)
-            it = int(info.iterations)            # host sync once per chunk
-            h = info.history[:it + 1].cpu().numpy()
-            hists.append(h if not hists else h[1:])
-            done += it
-            x0X = uX
-            if progress is not None:
-                progress(done, float(h[-1]) if h.size else float("nan"))
-            count("host_syncs", 3)          # the count, history, status
-            if int(info.status) != MAX_ITER or it == 0:
-                break
-        status = torch.where(info.status == RUNNING, MAX_ITER, info.status)
-        out = SolveInfo(status, torch.tensor(done), info.residual_norm,
-                        np.concatenate(hists) if hists else
-                        info.history.cpu().numpy())
-        return self.op.plan.unpack(uX), out
+        uX, info = chunk_history(self._chunks(bX, x0X, tol, max_iter, every,
+                                              dot_dtype), progress)
+        return self.op.plan.unpack(uX), info
 
     # -- the rest of the solver family on the packed operator -------------
     # (each keeps its block per configuration in _cached)

@@ -22,7 +22,6 @@ driver's `live` mask keeps them out (solvers/static.py).
 from __future__ import annotations
 
 import copy
-import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -30,6 +29,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..elements.tables import SHELL_TYPES, SOLID_TYPES
+from ..utils.profiling import StageClock
 from .operator import MatrixFreeOperator
 from .packed import PackedConstraints, PackedPartialOperator
 from .scatter import ScatterPlan
@@ -144,14 +144,7 @@ class PackedMixedSystem:
         np_dt = torch.empty((), dtype=dt).numpy().dtype
         coords_t = torch.as_tensor(coords_np, device=dev).to(dt)
         self.timings = {}
-        t0 = [time.perf_counter()]
-
-        def tick(stage):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            now = time.perf_counter()
-            self.timings[stage] = now - t0[0]
-            t0[0] = now
+        tick = StageClock(dev, self.timings).tick
 
         # primary = the solid block with the most element DOFs
         primary_et = max(solids, key=lambda et: solids[et].size)

@@ -32,7 +32,6 @@ with the system, so a CUDA graph of the PCG block reads fixed addresses.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -42,6 +41,7 @@ from ..ops import packed_kernels as pk
 from ..ops.packed import (BLK, ROW, PackedPlan, block_apply,
                           invert_block_planes, pa_apply_planar,
                           pa_blockdiag_planar, pa_diag_planar)
+from ..utils.profiling import StageClock
 from .dist import PartSystem, gather_rows, inverse_diagonal, make_mesh_1d
 from .halo_partial import _color_rounds
 
@@ -177,26 +177,16 @@ class PackedDistPartition:
         from ..ops.partial import chunked_geometry
 
         dev = resolve_device(device)
-        clock = [time.perf_counter()]
-
-        def stage(name):
-            if timings is not None:
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                now = time.perf_counter()
-                timings[name] = now - clock[0]
-                clock[0] = now
-
         conn = np.asarray(conn)
         coords_np = _np(coords)
         if n_nodes is None:
             n_nodes = coords_np.shape[0]
+        stage = StageClock(dev, timings).tick
         if plan is None:
             plan = PackedPlan.build(coords_np, conn, int(n_nodes),
                                     elems_per_cluster, window_buckets=0,
                                     device="cpu")
             stage("plan")
-        clock[0] = time.perf_counter()
         m = plan.meta
         if len(m.c_groups) != 1 or len(m.cv_widths) != 1:
             raise ValueError("PackedDistPartition needs a plan built with "
@@ -584,13 +574,10 @@ def build_packed_halo_fem(coords, conn, etype: str, E: float, nu: float,
     if fixed_nodes is not None:
         mask_n[np.asarray(fixed_nodes)] = 0.0
     fem.free_mask = fem.local_rows(part.pack_np(mask_n))
-    t0 = time.perf_counter()
+    clock = StageClock(mesh.device, timings)
     if precondition == "block":
         fem.M_inv = fem.block_jacobi_preconditioner(mask=fem.free_mask)
     elif precondition:
         fem.M_inv = fem.jacobi_preconditioner() * fem.free_mask
-    if timings is not None:
-        if mesh.device.type == "cuda":
-            torch.cuda.synchronize(mesh.device)
-        timings["preconditioner"] = time.perf_counter() - t0
+    clock.tick("preconditioner")
     return fem, part

@@ -29,6 +29,8 @@ class BiCGStabBlock(GraphedBlock):
     advances n <= CHECK_EVERY iterations (a CUDA graph per n on the card);
     `solve` holds the prologue and the block loop."""
 
+    kind = "bicgstab"
+
     def __init__(self, A: Callable, like: torch.Tensor, *, constraints=None,
                  tol: float = 1e-8, eps: float = 1e-30):
         super().__init__(like.device)
@@ -126,10 +128,9 @@ class BiCGStabBlock(GraphedBlock):
         self.status.copy_(torch.where(rs0 < tol2, CONVERGED, RUNNING))
         self.i.zero_()
         for it in range(0, max_iter, CHECK_EVERY):
-            if int(self.status) != RUNNING:
-                break
             n = min(CHECK_EVERY, max_iter - it)
-            self.run(n)
+            if not self.advance(n):
+                break
             hist[it + 1:it + 1 + n] = self.hblock[:n]
         status = torch.where(self.status == RUNNING, MAX_ITER,
                              self.status).to(torch.int32)

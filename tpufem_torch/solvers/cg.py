@@ -33,6 +33,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..utils.profiling import count, span, spanned
@@ -135,7 +136,11 @@ class GraphedBlock:
     a CUDA graph (the graphs share one memory pool) and replayed;
     `capture(n)` captures without running anything.  A capture that fails
     raises.  CGBlock, solvers.bicgstab.BiCGStabBlock and
-    solvers.gmres.GMRESCycle are such bodies."""
+    solvers.gmres.GMRESCycle are such bodies.  `advance(n)` is the host's
+    one crossing of a block boundary; it reads `status`, the body's int32
+    device status, and names its spans after `kind`."""
+
+    kind = ""
 
     def __init__(self, device: torch.device):
         self.graphed = device.type == "cuda"
@@ -160,6 +165,19 @@ class GraphedBlock:
         self.capture(n)
         self.graphs[n].replay()
 
+    def advance(self, n: int) -> bool:
+        """Read the status (span <kind>.sync, counted in host_syncs); if it
+        is RUNNING, run n steps (span <kind>.launch) and return True, else
+        return False."""
+        with span(self.kind + ".sync"):
+            running = int(self.status) == RUNNING
+        count("host_syncs")
+        if not running:
+            return False
+        with span(self.kind + ".launch"):
+            self.run(n)
+        return True
+
 
 class CGBlock(GraphedBlock):
     """cg's loop body: `run(n)` advances a CGState by n <= CHECK_EVERY
@@ -174,6 +192,8 @@ class CGBlock(GraphedBlock):
     first use exist before any capture.  The configuration (A, the
     constraints, M_inv, tol, eps, the history, the dot dtype) lives here
     only: `solve` takes the right-hand side and the per-call options."""
+
+    kind = "cg"
 
     def __init__(self, A: Callable, like: torch.Tensor, *, constraints=None,
                  M_inv=None, tol: float = 1e-10, eps: float = 1e-30,
@@ -197,6 +217,7 @@ class CGBlock(GraphedBlock):
         self.project(like)
         self.set_state(like)
         self.state = CGState(like)
+        self.status = self.state.status
         # on the card, a pure-mask configuration takes the fused step
         # (solvers.cg_fused): three kernels an iteration besides A(p)
         self.fused = None
@@ -281,7 +302,7 @@ class CGBlock(GraphedBlock):
 
         Spans: cg.prologue, then for each block cg.sync (the host's read of
         the status, counted in host_syncs) and cg.launch (the block's graph
-        replay; the block itself on the CPU)."""
+        replay; the block itself on the CPU): see GraphedBlock.advance."""
         dtype = b.dtype
         dev = b.device
         if b.shape != self.state.u.shape or dtype != self.dtype:
@@ -319,14 +340,9 @@ class CGBlock(GraphedBlock):
                 getattr(st, name).copy_(val)
             st.i.zero_()
         for it in range(0, max_iter, CHECK_EVERY):
-            with span("cg.sync"):
-                running = int(st.status) == RUNNING
-            count("host_syncs")
-            if not running:
-                break
             n = min(CHECK_EVERY, max_iter - it)
-            with span("cg.launch"):
-                self.run(n)
+            if not self.advance(n):
+                break
             if record:
                 hist[it + 1:it + 1 + n] = st.hblock[:n]
 
@@ -363,6 +379,49 @@ def cg(A: Callable, b: torch.Tensor, *, constraints=None, M_inv=None,
                     dot_dtype=dot_dtype)
     return block.solve(b, x0=x0, max_iter=max_iter,
                        resume_state=resume_state, return_state=return_state)
+
+
+def cg_chunks(block: CGBlock, b: torch.Tensor, x0: torch.Tensor,
+              max_iter: int, every: int):
+    """PCG on `block` as chunks of min(every, max_iter - done) iterations,
+    each resuming the last one's p and rz (the first starts fresh): one
+    solve's trajectory while a chunk's true residual, which it starts
+    from, agrees with the recurrence's.  Yields (u, info, done) after
+    each chunk, done the iterations so far, and stops after a chunk that
+    ended other than MAX_ITER or ran none.  Each chunk's count and status
+    are read on the host (host_syncs)."""
+    u = x0
+    p = torch.zeros_like(b)                 # rz <= 0: a fresh start
+    rz = torch.tensor(-1.0, dtype=b.dtype, device=b.device)
+    done = 0
+    while done < max_iter:
+        u, info, (p, rz) = block.solve(
+            b, x0=u, max_iter=min(every, max_iter - done),
+            resume_state=(p, rz), return_state=True)
+        it = int(info.iterations)
+        done += it
+        count("host_syncs", 2)              # the count and the status
+        yield u, info, done
+        if int(info.status) != MAX_ITER or it == 0:
+            break
+
+
+def chunk_history(chunks, progress=None):
+    """Run cg_chunks' chunks, reading each one's history too (one more host
+    read a chunk) and calling progress(done, the last ||r||) if given:
+    (u, SolveInfo) with the total count and the chunks' histories
+    joined."""
+    hists, last = [], 0
+    for u, info, done in chunks:
+        h = info.history[:done - last + 1].cpu().numpy()
+        hists.append(h if not hists else h[1:])
+        last = done
+        if progress is not None:
+            progress(done, float(h[-1]))
+        count("host_syncs")
+    status = torch.where(info.status == RUNNING, MAX_ITER, info.status)
+    return u, SolveInfo(status, torch.tensor(done), info.residual_norm,
+                        np.concatenate(hists))
 
 
 class _MaskConstraint:

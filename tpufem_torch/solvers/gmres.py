@@ -31,6 +31,8 @@ class GMRESCycle(GraphedBlock):
     iterations it used).  `run(m)` runs the cycle (a CUDA graph on the
     card); `solve` holds the cycles and the final residual."""
 
+    kind = "gmres"
+
     def __init__(self, A: Callable, like: torch.Tensor, *, constraints=None,
                  M_inv=None, tol: float = 1e-8, restart: int = 50,
                  eps: float = 1e-30):
@@ -129,9 +131,8 @@ class GMRESCycle(GraphedBlock):
         hist = torch.full((n_cycles * m,), float("inf"), dtype=b.dtype,
                           device=b.device)
         for c in range(n_cycles):
-            if int(self.status) != RUNNING:
+            if not self.advance(m):
                 break
-            self.run(m)
             hist[c * m:(c + 1) * m] = self.res
         u = self.u.clone()
         r = self.project(self.b - self.A(u))

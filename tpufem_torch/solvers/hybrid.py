@@ -48,7 +48,6 @@ Changes from tpufem, kept on purpose:
 from __future__ import annotations
 
 import dataclasses
-import time
 import weakref
 from typing import Optional, Tuple
 
@@ -57,7 +56,9 @@ import torch
 
 from ..core.device import resolve_device
 from ..ops.scatter import CombinePlan
-from .cg import CONVERGED, MAX_ITER, RUNNING, CGBlock, SolveInfo
+from ..utils.profiling import StageClock
+from .cg import (CONVERGED, MAX_ITER, CGBlock, SolveInfo, cg_chunks,
+                 chunk_history)
 
 # bytes of the per-chunk temporaries of the factor build (tpufem: 1.5 GB
 # for a 16 GB chip; the H100 holds 80 GB)
@@ -288,33 +289,15 @@ class HybridSystem:
         state."""
         f = self._force(f)
         fIp, g = self._condense(f)
-        uG = torch.zeros_like(g)
-        pG = torch.zeros_like(g)            # rz <= 0 -> fresh start
-        rz = torch.tensor(-1.0, dtype=g.dtype, device=g.device)
-        blk = self._block(tol)
-        hists, done, info = [], 0, None
-        while done < max_iter:
-            it = min(every, max_iter - done)
-            uG, info, (pG, rz) = blk.solve(g, x0=uG, max_iter=it,
-                                           resume_state=(pG, rz),
-                                           return_state=True)
-            ni = int(info.iterations)       # host sync once per chunk
-            h = info.history[:ni + 1].cpu().numpy()
-            hists.append(h if not hists else h[1:])
-            done += ni
-            if progress is not None:
-                progress(done, float(h[-1]) if h.size else float("nan"))
-            if int(info.status) != MAX_ITER or ni == 0:
-                break
-        u = self._backsub(fIp, f, uG)
-        if info is None:
+        if max_iter < 1:
             gn = torch.sqrt(torch.sum(g * g))
             st = torch.where(gn < tol, CONVERGED, MAX_ITER).to(torch.int32)
-            return u, SolveInfo(st, torch.tensor(0), gn,
-                                gn.reshape(1).cpu().numpy())
-        status = torch.where(info.status == RUNNING, MAX_ITER, info.status)
-        return u, SolveInfo(status, torch.tensor(done), info.residual_norm,
-                            np.concatenate(hists))
+            return self._backsub(fIp, f, torch.zeros_like(g)), SolveInfo(
+                st, torch.tensor(0), gn, gn.reshape(1).cpu().numpy())
+        uG, info = chunk_history(cg_chunks(self._block(tol), g,
+                                           torch.zeros_like(g), max_iter,
+                                           every), progress)
+        return self._backsub(fIp, f, uG), info
 
     def resident_bytes(self) -> dict:
         """Bytes of each stored block (the dense factors and the rest)."""
@@ -514,14 +497,7 @@ def build_hybrid(coords, conn, etype: str, E: float, nu: float,
     stages = {k: 0.0 for k in ("partition", "stiffness", "tables",
                                "assembly", "factorization", "schur",
                                "coarse", "operator")}
-    clock = [time.perf_counter()]
-
-    def tick(stage):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        stages[stage] += now - clock[0]
-        clock[0] = now
+    tick = StageClock(dev, stages).tick
 
     conn_np = np.asarray(conn)
     coords_np = (coords.cpu().numpy() if isinstance(coords, torch.Tensor)

@@ -23,7 +23,6 @@ through PackedConstraints, PCG as CUDA graphs on the card.  Both return
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -35,7 +34,7 @@ from ..elements import solid as solid_mod
 from ..elements.tables import SHELL_TYPES, SOLID_TYPES
 from ..ops.operator import MatrixFreeOperator
 from ..ops.scatter import ScatterPlan
-from ..utils.profiling import span, spanned
+from ..utils.profiling import StageClock, span, spanned
 from .cg import cg
 from .constraints import Constraints
 
@@ -113,29 +112,22 @@ def build_static_model(coords, blocks: Dict[str, np.ndarray], material: dict,
         coords_t = coords_t.to(dtype)
     N = coords_t.shape[0]
     t = {"stiffness": 0.0, "plans": 0.0, "operator": 0.0}
-
-    def tick(stage, t0):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t[stage] += time.perf_counter() - t0
-        return time.perf_counter()
-
     ops, shells = [], []
     for et, conn in blocks.items():
         et = et.lower()
         conn_np = np.asarray(conn)
         conn_t = torch.as_tensor(conn_np, device=dev)
-        t0 = time.perf_counter()
+        tick = StageClock(dev, t).tick
         if et in SOLID_TYPES and operator == "partial":
             from ..ops.partial import PartialAssemblyOperator
             with span("static.plans"):
                 plan = ScatterPlan.build(conn_np, N, 3, device=dev)
-                t0 = tick("plans", t0)
+                tick("plans")
             with span("static.operator"):
                 ops.append(PartialAssemblyOperator.build(
                     coords_t, conn_np, et, material["E"], material["nu"],
                     plan=plan, affine=False))
-                tick("operator", t0)
+                tick("operator")
             continue
         with span("static.stiffness"):
             if et in SHELL_TYPES:
@@ -146,7 +138,7 @@ def build_static_model(coords, blocks: Dict[str, np.ndarray], material: dict,
             else:
                 K = solid_mod.stiffness(coords_t, conn_t, et, material["E"],
                                         material["nu"])
-            t0 = tick("stiffness", t0)
+            tick("stiffness")
         with span("static.plans"):
             if et in SHELL_TYPES:
                 plan = ScatterPlan.build(conn_np, N, 6, device=dev)
@@ -155,7 +147,7 @@ def build_static_model(coords, blocks: Dict[str, np.ndarray], material: dict,
                 plan = ClusterPlan.build(conn_np, N, 3, device=dev)
             else:
                 plan = ScatterPlan.build(conn_np, N, 3, device=dev)
-            t0 = tick("plans", t0)
+            tick("plans")
         with span("static.operator"):
             if et in SHELL_TYPES:
                 shells.append(shell_mod.ShellOperator(K, unit, plan))
@@ -166,7 +158,7 @@ def build_static_model(coords, blocks: Dict[str, np.ndarray], material: dict,
             else:
                 ops.append(MatrixFreeOperator(K, plan))
             del K
-            tick("operator", t0)
+            tick("operator")
     if timings is not None:
         timings.update(t)
     return StaticModel(ops, shells)
@@ -231,23 +223,18 @@ def static_structure_solver(coords, force, fixed=None, *, material: dict,
                      tol, max_iter, precondition, dot_dtype, dev, timings)
     model = build_static_model(coords, blocks, material, dtype=dt,
                                operator=operator, device=dev, timings=timings)
-    t0 = time.perf_counter()
+    tick = StageClock(dev, timings).tick
     d6 = model.diagonal6()
     live = (d6.abs() > 0).to(dt)
     M_inv = model.jacobi_preconditioner(d6) if precondition else None
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t1 = time.perf_counter()
+    tick("jacobi")
     x0 = (torch.as_tensor(np.asarray(u_init), device=dev).to(dt)
           if u_init is not None else None)
     u, info = cg(model, force_t * live,
                  constraints=_LiveConstraints(constraints, live),
                  M_inv=M_inv, x0=x0, tol=tol, max_iter=max_iter,
                  dot_dtype=dot_dtype)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    if timings is not None:
-        timings.update(jacobi=t1 - t0, solve=time.perf_counter() - t1)
+    tick("solve")
     return u, info
 
 
@@ -258,7 +245,7 @@ def _packed_solve(coords, force_t, blocks, material, constraints, u_init,
     from ..ops.packed import PackedPartialOperator, PackedSystem
     (et, conn), = blocks.items()
     dt, N = force_t.dtype, force_t.shape[0]
-    t0 = time.perf_counter()
+    tick = StageClock(dev, timings).tick
     op = PackedPartialOperator.build(
         np.asarray(coords), np.asarray(conn), et.lower(), material["E"],
         material["nu"], n_nodes=N, dtype=dt, device=dev)
@@ -266,19 +253,14 @@ def _packed_solve(coords, force_t, blocks, material, constraints, u_init,
         op, constraints=constraints,
         precondition=(precondition if isinstance(precondition, str)
                       else ("jacobi" if precondition else None)))
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t1 = time.perf_counter()
+    tick("operator")
     x0 = (torch.as_tensor(np.asarray(u_init)[:, :3], dtype=dt, device=dev)
           if u_init is not None else None)
     u3, info = system.solve(force_t[:, :3], x0=x0, tol=tol,
                             max_iter=max_iter, dot_dtype=dot_dtype)
     u6 = u3.new_zeros((N, 6))
     u6[:, :3] = u3
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    if timings is not None:
-        timings.update(operator=t1 - t0, solve=time.perf_counter() - t1)
+    tick("solve")
     return u6, info
 
 
@@ -289,19 +271,15 @@ def _packed_mixed_solve(coords, force_t, blocks, material, constraints,
     (ops.packed_mixed.PackedMixedSystem, tpufem's mixed packed branch)."""
     from ..ops.packed_mixed import PackedMixedSystem
     N = force_t.shape[0]
-    t0 = time.perf_counter()
+    tick = StageClock(dev, timings).tick
     system = PackedMixedSystem(coords, blocks, material, n_nodes=N,
                                constraints=constraints,
                                precondition=bool(precondition),
                                dtype=force_t.dtype, device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t1 = time.perf_counter()
+    tick("operator")
     u6, info = system.solve(force_t, x0=u_init, tol=tol, max_iter=max_iter,
                             dot_dtype=dot_dtype)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    tick("solve")
     if timings is not None:
         timings.update(system.timings)
-        timings.update(operator=t1 - t0, solve=time.perf_counter() - t1)
     return u6, info

@@ -6,6 +6,8 @@ section 5).  Here:
 * :func:`timed` — wall-times a callable with its result reduced and read
   back to the host, and a two-point slope option that cancels constant
   launch latency.
+* :class:`StageClock` — the seconds of a set-up's stages, each ending in
+  a device synchronise.
 * :class:`Roofline` — nnz/s, elements/s, GB/s counters for kernels.
 * :func:`trace` — context manager around torch.profiler that writes a
   Chrome trace.
@@ -72,6 +74,26 @@ def timed_slope(make_fn: Callable[[int], Callable], lo: int, hi: int,
     t1 = timed(make_fn(lo), *args, reps=reps)
     t2 = timed(make_fn(hi), *args, reps=reps)
     return max((t2 - t1) / (hi - lo), 1e-12)
+
+
+class StageClock:
+    """A set-up's stage clock: `tick(name)` ends a stage.  It synchronises
+    the device (a CUDA card), adds the seconds since the last tick (or
+    since the clock was made) to timings[name] when a dict was given, and
+    starts the next stage."""
+
+    def __init__(self, device, timings: Optional[dict] = None):
+        self.device = torch.device(device)
+        self.timings = timings
+        self.t0 = time.perf_counter()
+
+    def tick(self, name: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        if self.timings is not None:
+            self.timings[name] = self.timings.get(name, 0.0) + now - self.t0
+        self.t0 = now
 
 
 @dataclasses.dataclass

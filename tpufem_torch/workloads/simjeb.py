@@ -29,11 +29,12 @@ stage (the device synchronized at each stage's end).
 from __future__ import annotations
 
 import os
-import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from ..utils.profiling import StageClock
 
 # SimJEB material (solver_example.ipynb cell 2)
 SIMJEB_E = 113.8e9
@@ -46,25 +47,8 @@ def _working_dtype() -> torch.dtype:
             else torch.float32)
 
 
-class _Stages:
-    """Seconds of each stage into `timings` (when a dict is given)."""
-
-    def __init__(self, timings: Optional[dict], dev: torch.device):
-        self.timings, self.dev = timings, dev
-        self.t = time.perf_counter()
-
-    def done(self, name: str) -> None:
-        if self.timings is None:
-            return
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        now = time.perf_counter()
-        self.timings[name] = self.timings.get(name, 0.0) + now - self.t
-        self.t = now
-
-
 def _synthesize_arrays(n: int, E: float, nu: float, dev: torch.device,
-                       etype: str, stages: _Stages):
+                       etype: str, stages: StageClock):
     """The bundle's arrays: (coords, conn, rbe2, rbe3, F_target, u, info)
     with u the converged constrained PCG solution for the tip load."""
     from ..ops.packed import PackedPartialOperator, PackedSystem
@@ -75,23 +59,23 @@ def _synthesize_arrays(n: int, E: float, nu: float, dev: torch.device,
     N = coords.shape[0]
     rbe2 = np.asarray(meshgen.boundary_nodes(coords, 2, 0.0))
     rbe3 = np.asarray(meshgen.boundary_nodes(coords, 2, 2.0))
-    stages.done("mesh")
+    stages.tick("mesh")
 
     op = PackedPartialOperator.build(coords, conn, etype, E, nu, n_nodes=N,
                                      dtype=_working_dtype(), device=dev)
     F_target = np.zeros((N, 3))
     F_target[rbe3, 2] = -1e4
     system = PackedSystem(op, fixed_nodes=rbe2)
-    stages.done("synthesis_build")
+    stages.tick("synthesis_build")
     u, info = system.solve(F_target, tol=1e-8 * float(
         np.linalg.norm(F_target)), max_iter=4000)
     u = u.cpu().numpy()
-    stages.done("synthesis_solve")
+    stages.tick("synthesis_solve")
     return coords, conn, rbe2, rbe3, F_target, u, info
 
 
 def _bundle_arrays(out_dir: str, n: int, E: float, nu: float,
-                   dev: torch.device, etype: str, stages: _Stages):
+                   dev: torch.device, etype: str, stages: StageClock):
     """The bundle's mesh.vtu, written, and its sample's datasets, in
     memory: (mesh path, {"forces", "rbe2", "rbe3", "outputs"}, the
     synthesis PCG's SolveInfo)."""
@@ -102,7 +86,7 @@ def _bundle_arrays(out_dir: str, n: int, E: float, nu: float,
     os.makedirs(out_dir, exist_ok=True)
     mesh_path = os.path.join(out_dir, "mesh.vtu")
     vtk.write_vtu(mesh_path, coords, {etype: conn})
-    stages.done("vtu_write")
+    stages.tick("vtu_write")
     N = coords.shape[0]
     outputs = np.zeros((N, 1, 6))
     outputs[:, 0, :3] = u
@@ -131,14 +115,14 @@ def synthesize_simjeb_bundle(out_dir: str, n: int = 6, *,
     from ..core.device import resolve_device
 
     dev = resolve_device(device)
-    stages = _Stages(timings, dev)
+    stages = StageClock(dev, timings)
     mesh_path, sample, info = _bundle_arrays(out_dir, n, E, nu, dev, etype,
                                              stages)
     h5_path = os.path.join(out_dir, "sample_0.h5")
     with h5py.File(h5_path, "w") as f:
         for key in ("forces", "rbe2", "rbe3", "outputs"):
             f[key] = sample[key]
-    stages.done("h5_write")
+    stages.tick("h5_write")
     return {"mesh": mesh_path, "h5": h5_path, "etype": etype,
             "status": int(info.status), "iterations": int(info.iterations)}
 
@@ -166,7 +150,7 @@ def run_simjeb_workload(mesh_path: str, h5_path: str, *,
     from ..io import h5 as h5io
 
     dev = resolve_device(device)
-    stages = _Stages(timings, dev)
+    stages = StageClock(dev, timings)
     sample = h5io.load_simjeb_sample(h5_path)
     return _run_mesh_file(mesh_path, sample, etype=etype, E=E, nu=nu,
                           tol=tol, max_iter=max_iter, warm_start=warm_start,
@@ -175,8 +159,8 @@ def run_simjeb_workload(mesh_path: str, h5_path: str, *,
 
 
 def _run_mesh_file(mesh_path: str, sample: Dict[str, np.ndarray], *,
-                   etype: Optional[str], dev: torch.device, stages: _Stages,
-                   **kw) -> Dict[str, float]:
+                   etype: Optional[str], dev: torch.device,
+                   stages: StageClock, **kw) -> Dict[str, float]:
     """The workload from the mesh file and the sample's datasets (cell 3's
     mesh ingest, then _run_arrays)."""
     from ..io import vtk
@@ -188,7 +172,7 @@ def _run_mesh_file(mesh_path: str, sample: Dict[str, np.ndarray], *,
         (etype, conn), = blocks.items()
     else:
         conn = blocks[etype]
-    stages.done("read")
+    stages.tick("read")
     return _run_arrays(coords, conn, etype, sample, dev=dev, stages=stages,
                        **kw)
 
@@ -197,7 +181,7 @@ def _run_arrays(coords: np.ndarray, conn: np.ndarray, etype: str,
                 sample: Dict[str, np.ndarray], *, E: float, nu: float,
                 tol: float, max_iter: int, warm_start: bool,
                 dev: torch.device, out_path: Optional[str], verbose: bool,
-                stages: _Stages) -> Dict[str, float]:
+                stages: StageClock) -> Dict[str, float]:
     """The workload after ingest (cells 4-11 and the postprocess), from
     the mesh's arrays and the sample's {"rbe2", "rbe3", "outputs"}."""
     from ..elements.solid import element_stress, node_vm_stress
@@ -238,13 +222,13 @@ def _run_arrays(coords: np.ndarray, conn: np.ndarray, etype: str,
 
     # cell 10: constrained PCG (rbe2 pinned), warm-started at the outputs
     system = PackedSystem(op, fixed_nodes=rbe2)
-    stages.done("operator")
+    stages.tick("operator")
     u, info = system.solve(F_target,
                            x0=outputs if warm_start else None,
                            tol=tol * float(np.linalg.norm(F_target)),
                            max_iter=max_iter)
     u = u.cpu().numpy()
-    stages.done("solve")
+    stages.tick("solve")
     residual_solve = residual_sum(u)
 
     # postprocess: element/nodal von Mises + equilibrium diagnosis
@@ -256,7 +240,7 @@ def _run_arrays(coords: np.ndarray, conn: np.ndarray, etype: str,
     nvm = node_vm_stress(N, conn_t, vm).cpu().numpy()
     tensors = tensors.cpu().numpy()
     del coords_t, conn_t, vm
-    stages.done("stress")
+    stages.tick("stress")
     ff = element_face_forces(coords, conn, etype, tensors)
     res = shared_face_force_residual(conn, etype, ff)
     # stress-jump indicator: exact only in the refinement limit (the
@@ -268,12 +252,12 @@ def _run_arrays(coords: np.ndarray, conn: np.ndarray, etype: str,
     equilibrium_mean = float(np.linalg.norm(res, axis=-1).mean()
                              / max(float(np.linalg.norm(ff, axis=-1).mean()),
                                    1e-30))
-    stages.done("faces")
+    stages.tick("faces")
 
     if out_path:
         vtk.write_vtu(out_path, coords, {etype: conn},
                       point_data={"displacement": u, "von_mises": nvm})
-        stages.done("result_write")
+        stages.tick("result_write")
 
     metrics = {
         "residual_truth": residual_truth,
